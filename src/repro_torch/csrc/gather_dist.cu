@@ -3,6 +3,7 @@
 // Replaces the Pallas TPU kernels in src/repro/kernels/gather_dist.py:
 //   gather_rows_dist     (_rows_l2_kernel, _rows_cos_kernel)       -> K1
 //   gather_rows_dist_q8  (_rows_q8_l2_kernel, _rows_q8_cos_kernel) -> K2
+//   gather_dist          (_gather_dist_kernel, the legacy one)     -> K6
 // The TPU kernels take one query's R ids as scalar prefetch and DMA one row
 // per grid step.  Here one launch serves the whole batch: ids (B, R).
 //
@@ -25,6 +26,14 @@
 // sum rounded on its own (no FMA contraction) as the plain PyTorch version
 // rounds them, so the two differ only in the order of the d-term sum.  An
 // id >= N writes NaN instead of reading out of bounds.
+//
+// K6 takes rows the caller has already gathered, (B, R, d) contiguous, and
+// the same layout serves it: one block per query with q in shared memory,
+// one warp per (b, r) slot, float4 loads of the row vecs[b, r, :].  It is
+// bound by the bytes of that block (4d per valid slot, read once, in order).
+// It computes the TPU kernel's dot form max(|v|^2 - 2 v.q + |q|^2, 0), all
+// three sums in the one pass; an id < 0 writes exactly 3.4e38 and reads
+// nothing of its row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -140,6 +149,49 @@ rows_q8_kernel(const int* __restrict__ ids, const int8_t* __restrict__ codes,
   }
 }
 
+template <bool kVec4>
+__global__ void __launch_bounds__(kWarps * 32)
+gathered_l2_kernel(const float* __restrict__ vecs, const float* __restrict__ q,
+                   const int* __restrict__ ids, float* __restrict__ out, int R,
+                   int d) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  const int b = blockIdx.x;
+  stage_query(qs, q + (long long)b * d, d);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < R; r += kWarps) {
+    const long long slot = (long long)b * R + r;
+    if (ids[slot] < 0) {
+      if (lane == 0) out[slot] = kInf;
+      continue;
+    }
+    const float* row = vecs + slot * d;
+    float vn = 0.f, vq = 0.f, qn = 0.f;
+    if (kVec4) {
+      const float4* row4 = reinterpret_cast<const float4*>(row);
+      const float4* q4 = reinterpret_cast<const float4*>(qs);
+      for (int i = lane; i < (d >> 2); i += 32) {
+        const float4 v = __ldg(row4 + i);
+        const float4 w = q4[i];
+        vn = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, vn))));
+        vq = fmaf(v.x, w.x, fmaf(v.y, w.y, fmaf(v.z, w.z, fmaf(v.w, w.w, vq))));
+        qn = fmaf(w.x, w.x, fmaf(w.y, w.y, fmaf(w.z, w.z, fmaf(w.w, w.w, qn))));
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const float v = __ldg(row + i), w = qs[i];
+        vn = fmaf(v, v, vn);
+        vq = fmaf(v, w, vq);
+        qn = fmaf(w, w, qn);
+      }
+    }
+    vn = warp_sum(vn);
+    vq = warp_sum(vq);
+    qn = warp_sum(qn);
+    if (lane == 0) out[slot] = fmaxf(vn - 2.f * vq + qn, 0.f);
+  }
+}
+
 // Dynamic shared memory above 48 KB (d > 12288) must be opted into.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -212,6 +264,30 @@ extern "C" int gather_rows_dist_q8(const void* ids, const void* codes,
   } else {
     if ((e = allow_smem(rows_q8_kernel<true>, smem))) return e;
     rows_q8_kernel<true><<<grid, block, smem, s>>>(i, c, sc, zr, qq, iv, o, R, N, dp, nb, blk);
+  }
+  return (int)cudaGetLastError();
+}
+
+// vecs (B, R, d) f32 rows already gathered; q (B, d) f32; ids (B, R) i32
+// (only their sign is read); out (B, R) f32.
+extern "C" int gather_dist_f32(const void* vecs, const void* q,
+                               const void* ids, void* out, int B, int R, int d,
+                               void* stream) {
+  const size_t smem = (size_t)d * sizeof(float);
+  const bool vec4 = (d % 4 == 0) && ((uintptr_t)vecs % 16 == 0);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(B), block(kWarps * 32);
+  const float* v = (const float*)vecs;
+  const float* qq = (const float*)q;
+  const int* i = (const int*)ids;
+  float* o = (float*)out;
+  cudaError_t e;
+  if (vec4) {
+    if ((e = allow_smem(gathered_l2_kernel<true>, smem))) return e;
+    gathered_l2_kernel<true><<<grid, block, smem, s>>>(v, qq, i, o, R, d);
+  } else {
+    if ((e = allow_smem(gathered_l2_kernel<false>, smem))) return e;
+    gathered_l2_kernel<false><<<grid, block, smem, s>>>(v, qq, i, o, R, d);
   }
   return (int)cudaGetLastError();
 }

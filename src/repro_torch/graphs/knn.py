@@ -25,11 +25,27 @@ def pairwise_sq_l2(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def topk_smallest(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k smallest values per row, ascending, with their indices; among
     equal values the lowest index comes first (``lax.top_k``'s order, which
-    ``torch.topk`` does not promise)."""
-    vals, idx = torch.topk(d, k, dim=1, largest=False, sorted=True)
+    ``torch.topk`` does not promise).
+
+    ``torch.topk`` picks freely among values equal to the k-th, so it takes
+    k + 1: a row has such a tie across the boundary exactly when its
+    (k+1)-th smallest value equals its k-th, and only those rows are redone
+    with a stable sort of the whole row; every other row only needs its
+    first k picks put in order."""
+    kk = min(k + 1, d.shape[1]) if k > 0 else 0
+    vals, idx = torch.topk(d, kk, dim=1, largest=False, sorted=True)
+    tied = None
+    if 0 < k < kk:
+        tied = (vals[:, k] == vals[:, k - 1]).nonzero().squeeze(1)
+        vals, idx = vals[:, :k], idx[:, :k]
     idx, perm = torch.sort(idx, dim=1)
     vals, perm = torch.sort(vals.gather(1, perm), dim=1, stable=True)
-    return vals, idx.gather(1, perm)
+    idx = idx.gather(1, perm)
+    if tied is not None and tied.numel():
+        s_vals, s_idx = torch.sort(d[tied], dim=1, stable=True)
+        vals[tied] = s_vals[:, :k]
+        idx[tied] = s_idx[:, :k]
+    return vals, idx
 
 
 def exact_knn(

@@ -2,7 +2,8 @@
 
 Replace ``repro.kernels.gather_dist.gather_rows_dist`` and
 ``gather_rows_dist_q8`` (Pallas, one query per call, ids as scalar
-prefetch).  Here one call serves the whole batch: ids (B, R).  The CUDA
+prefetch).  Here one call serves the whole batch: ids (B, R).  The legacy
+``gather_dist`` takes rows the caller already gathered, (B, R, d).  The CUDA
 source is ``csrc/gather_dist.cu``; its header says what bounds the kernels
 on an H100 (device-memory bytes) and what the design does about it.
 
@@ -21,6 +22,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FUNCTIONS = {
     "gather_rows_dist_f32": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _P],
     "gather_rows_dist_q8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P],
+    "gather_dist_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 # the query row is staged in shared memory: at most 227 KB per block
 _MAX_WIDTH = 232448 // 4
@@ -123,5 +125,40 @@ def gather_rows_dist_q8(ids, codes, scale, zero, q, inv_norms=None, *,
     return out
 
 
+def gather_dist(vecs, q, ids, *, interpret: bool = False):
+    """(B, R) masked squared L2 of pre-gathered rows: vecs (B, R, d), q
+    (B, d), ids (B, R) int32 (``id < 0`` → exactly 3.4e38, the row is not
+    read).  The kernel computes the dot form ``max(‖v‖² − 2v·q + ‖q‖², 0)``
+    as the TPU kernel does; the plain version the difference form."""
+    _expect(vecs.dim() == 3 and q.dim() == 2 and ids.dim() == 2,
+            "gather_dist: need vecs (B, R, d), q (B, d), ids (B, R)")
+    B, R, d = vecs.shape
+    _expect(q.shape == (B, d) and ids.shape == (B, R),
+            f"gather_dist: q must be ({B}, {d}) and ids ({B}, {R})")
+    _expect(ids.dtype == torch.int32, "gather_dist: ids must be int32")
+    _expect(vecs.device == q.device == ids.device
+            and ids.device.type in ("cpu", "cuda"),
+            "gather_dist: vecs, q and ids must be on one CPU or CUDA device")
+    if interpret or ids.device.type == "cpu":
+        return ref.gather_dist_ref(vecs, q, ids)
+    _expect(d <= _MAX_WIDTH, f"gather_dist: d={d} > {_MAX_WIDTH}")
+    vecs = vecs.to(torch.float32).contiguous()
+    q = q.to(torch.float32).contiguous()
+    ids = ids.contiguous()
+    out = torch.empty((B, R), dtype=torch.float32, device=ids.device)
+    if B * R == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(ids.device):
+        err = lib.gather_dist_f32(
+            _build.ptr(vecs), _build.ptr(q), _build.ptr(ids), _build.ptr(out),
+            B, R, d, _build.stream_of(ids),
+        )
+    _build.check(lib, err, "gather_dist")
+    gather_dist.launches += 1
+    return out
+
+
 gather_rows_dist.launches = 0
 gather_rows_dist_q8.launches = 0
+gather_dist.launches = 0

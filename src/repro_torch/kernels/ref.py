@@ -53,6 +53,35 @@ def gather_rows_dist_q8_ref(ids, codes, scale, zero, q, inv_norms=None):
     return torch.where(ids >= 0, d, INF)
 
 
+def l2dist_ref(q, c):
+    """(Q, d) × (C, d) → (Q, C) squared L2 ``‖q‖² − 2q·c + ‖c‖²``, fp32,
+    clamped at 0 (a matrix product, not a kernel of the port)."""
+    qf = q.to(torch.float32)
+    cf = c.to(torch.float32)
+    qn = torch.sum(qf * qf, dim=1, keepdim=True)
+    cn = torch.sum(cf * cf, dim=1, keepdim=True)
+    return torch.clamp_min(qn - 2.0 * (qf @ cf.T) + cn.T, 0.0)
+
+
+def topk_min_ref(d, k: int):
+    """(B, C) → (values (B, k) ascending, indices (B, k) int32); among equal
+    values the lowest index comes first, as ``lax.top_k`` orders them.  A
+    stable sort of the whole row, because ``torch.topk`` picks freely among
+    values equal to the k-th."""
+    vals, idx = torch.sort(d.to(torch.float32), dim=1, stable=True)
+    return vals[:, :k], idx[:, :k].to(torch.int32)
+
+
+def gather_dist_ref(vecs, q, ids):
+    """(B, R, d) pre-gathered rows, (B, d) queries, (B, R) ids → (B, R)
+    masked squared L2 in the difference form ``Σ(v − q)²``; INF where
+    ``id < 0``."""
+    vf = vecs.to(torch.float32)
+    qf = q.to(torch.float32)
+    d = torch.sum((vf - qf[:, None, :]) ** 2, dim=-1)
+    return torch.where(ids >= 0, torch.clamp_min(d, 0.0), INF)
+
+
 def twotower_score_ref(q, h):
     """(B, d) × (H, d) → (B, H) cosine similarity, fp32.
 

@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from repro_torch import GateConfig, GateIndex, SearchParams, batched_search
+from repro_torch.kernels import ops
+from repro_torch.serve.daemon import ServeDaemon
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -46,9 +48,11 @@ def test_entry_points_default_to_the_card():
     nbrs = rng.integers(0, 64, (64, 4)).astype(np.int32)
     q = db[:3]
     entries = np.zeros((3, 1), np.int32)
+    tq = torch.from_numpy(q)
     if torch.cuda.is_available():
         res = batched_search(db, nbrs, q, entries, SearchParams(k=2))
         assert res.ids.is_cuda
+        assert ops.l2dist(tq.cuda(), tq.cuda(), mode="cuda").is_cuda
         return
     # no card here: the default device must fail, never fall back to the CPU
     with pytest.raises((AssertionError, RuntimeError)):
@@ -56,3 +60,22 @@ def test_entry_points_default_to_the_card():
     with pytest.raises((AssertionError, RuntimeError)):
         GateIndex.build(db, q, GateConfig(n_hubs=2, epochs=1), R=4, knn_k=4,
                         search_l=8, pool_size=8)
+    # the serving daemon searches on the card: warm-up must fail here
+    idx = GateIndex.build(db, q, GateConfig(n_hubs=2, epochs=1, batch_hubs=2),
+                          R=4, knn_k=4, search_l=8, pool_size=8, device="cpu")
+    daemon = ServeDaemon(idx, batch_size=3)
+    assert daemon.device == "cuda"
+    try:
+        with pytest.raises((AssertionError, RuntimeError)):
+            daemon.start()
+    finally:
+        daemon.stop()
+    # the kernel API's cuda mode never runs the plain version on the CPU
+    for call in (lambda: ops.l2dist(tq, tq, mode="cuda"),
+                 lambda: ops.topk_min(tq, 2, mode="cuda"),
+                 lambda: ops.twotower_score(tq, tq, mode="cuda"),
+                 lambda: ops.gather_dist(tq[:, None, :], tq,
+                                         torch.zeros((3, 1), dtype=torch.int32),
+                                         mode="cuda")):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()

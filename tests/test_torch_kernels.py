@@ -124,4 +124,5 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     out = gather_rows_dist(t(ids), t(db), t(q))
     assert torch.equal(out, ref.gather_rows_dist_ref(t(ids), t(db), t(q)))
     assert launch_counts() == {"gather_rows_dist": 0, "gather_rows_dist_q8": 0,
-                               "twotower_score": 0}
+                               "twotower_score": 0, "topk_min": 0,
+                               "l2dist": 0, "gather_dist": 0}
