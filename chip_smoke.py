@@ -3,6 +3,7 @@
 
 Run from the root of a checkout:
     python3 chip_smoke.py  [--n N] [--queries Q] [--out FILE]
+                           [--hop-baseline OTHER/gather_dist.cu]
 
 1. Print the card and its power limit; build the CUDA kernels from
    src/repro_torch/csrc with nvcc (all sources in parallel).
@@ -23,7 +24,16 @@ Run from the root of a checkout:
    xla / fused / fused_q8 kernels and the medoid baseline; recall@10 against
    exact ground truth, QPS, and the mean telemetry of one instrumented run.
 6. Cosine search with fused and fused_q8 on the same index.
-7. One fused search under torch.profiler: the device's busy and idle share.
+7. One fused and one fused_q8 search under torch.profiler: the device's
+   busy and idle share, and the kernels that take it.
+   Hop phase: every call of the hop kernel in one fused l2 search of the Q
+   queries (K1), one fused_q8 search (K2) and one 1024-query fused search
+   at the adaptive daemon's starting rung (K1 at the serve shape) is
+   recorded (ids (B, R), R the index's padded degree), replayed under CUDA
+   events (sum and median per call) beside its bound from its own ids, and
+   every 10th call held against the plain version, l2 and cosine.  With
+   --hop-baseline, the hop kernels of another source (e.g. the parent
+   commit's) are timed and held on the same calls.
 8. Serve phase: a ServeDaemon over the index (kernel "fused", batches of
    1024): 16 requests to an adaptive daemon on DEFAULT_LADDER with /metrics
    scraped once, then 16 to a routed daemon with a query log and shadow
@@ -34,13 +44,16 @@ Phases 3, 5-6 and 8 are each driven with the kernel launch counts set to 0
 just before and read just after: K4-K6 must launch in phase 3, K1-K3 in
 phases 5-6 and K1/K3 in phase 8.  Every check that fails raises, so the
 script exits non-zero and prints no result.  The last line is the JSON
-result object; the line before it lists every kernel.  ``--out FILE`` also
+result object; the line before it lists every kernel (K1 and K2 at the
+hop phase's 10,000-query calls).  ``--out FILE`` also
 writes the full record there as JSON.  Exits non-zero without a CUDA card
 or outside a checkout.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -75,13 +88,13 @@ def bound(bytes_moved: float, ops: float) -> dict:
             "bytes": bytes_moved, "ops": ops}
 
 
-def cuda_ms(torch, fn, reps: int = 30) -> float:
-    """Median device time of ``fn(i)`` over ``reps`` calls, in ms.
+def cuda_times(torch, fn, reps: int) -> list:
+    """Device time of each of ``fn(0)`` … ``fn(reps - 1)``, in ms.
 
     A sleep kernel keeps the card busy while the host enqueues every call,
     so each CUDA-event pair brackets the device work of one call and not the
     host's launch overhead (tens of microseconds per Python call)."""
-    for i in range(3):
+    for i in range(min(3, reps)):
         fn(i)
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
@@ -92,7 +105,26 @@ def cuda_ms(torch, fn, reps: int = 30) -> float:
         fn(i)
         e.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return [s.elapsed_time(e) for s, e in events]
+
+
+def cuda_ms(torch, fn, reps: int = 30) -> float:
+    """Median device time of ``fn(i)`` over ``reps`` calls, in ms."""
+    return statistics.median(cuda_times(torch, fn, reps))
+
+
+def hold(torch, np, name, got, want, ids) -> float:
+    """A hop kernel's (B, R) output against its plain version's: invalid
+    slots exactly 3.4e38, valid ones within rtol = atol = 1e-5.  Returns the
+    largest absolute error over the valid slots."""
+    torch.cuda.synchronize()
+    bad = ids < 0
+    require(bool(torch.all(got[bad] == want[bad])) and
+            bool(torch.all(got[bad] == np.float32(3.4e38))),
+            f"{name}: invalid slots are not exactly 3.4e38")
+    ok = torch.isclose(got[~bad], want[~bad], rtol=1e-5, atol=1e-5)
+    require(bool(ok.all()), f"{name}: kernel disagrees with its plain version")
+    return float((got[~bad] - want[~bad]).abs().max()) if bool((~bad).any()) else 0.0
 
 
 def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64) -> dict:
@@ -122,16 +154,6 @@ def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64) -> dict:
     qnp[:, :d] = qn
     out = {}
 
-    def check(name, got, want, ids):
-        torch.cuda.synchronize()
-        bad = ids < 0
-        require(bool(torch.all(got[bad] == want[bad])) and
-                bool(torch.all(got[bad] == np.float32(3.4e38))),
-                f"{name}: invalid slots are not exactly 3.4e38")
-        ok = torch.isclose(got[~bad], want[~bad], rtol=1e-5, atol=1e-5)
-        require(bool(ok.all()), f"{name}: kernel disagrees with its plain version")
-        return float((got[~bad] - want[~bad]).abs().max())
-
     n_valid = float((ids_all[:reps] >= 0).sum()) / reps
     for name, fn, plain, args_l2, args_cos, row_bytes in (
         ("gather_rows_dist", gather_rows_dist, ref.gather_rows_dist_ref,
@@ -142,8 +164,8 @@ def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64) -> dict:
     ):
         rec = {}
         for metric, args in (("l2", args_l2), ("cosine", args_cos)):
-            err = check(f"{name}/{metric}", fn(ids_all[0], *args),
-                        plain(ids_all[0], *args), ids_all[0])
+            err = hold(torch, np, f"{name}/{metric}", fn(ids_all[0], *args),
+                       plain(ids_all[0], *args), ids_all[0])
             ms = cuda_ms(torch, lambda i: fn(ids_all[i], *args), reps)
             plain_ms = cuda_ms(torch, lambda i: plain(ids_all[i], *args), reps)
             width = args[-2 if metric == "cosine" else -1].shape[1]
@@ -417,6 +439,177 @@ def profile_search(torch, idx, eval_q, dev, wall_s: float, sp=None) -> dict:
     }
 
 
+@contextlib.contextmanager
+def record_calls(module, name: str):
+    """Replace ``module.<name>`` with a wrapper that keeps a clone of each
+    call's ids and its other arguments, yield that list of ``(ids, args)``,
+    and put the function back after."""
+    orig = getattr(module, name)
+    calls = []
+
+    def wrapped(ids, *args, **kw):
+        calls.append((ids.clone(), args))
+        return orig(ids, *args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def hop_bound(torch, ids, row_bytes: int, q_bytes: int, width: int) -> dict:
+    """Bound of one hop-kernel call on its own ids (B, R): the ids read and
+    the output written (4 bytes a slot each), each distinct valid row once
+    (``row_bytes``), the query row (``q_bytes``) of each query that has a
+    valid id; 3 operations per element of each valid slot."""
+    valid = ids >= 0
+    n_valid = int(valid.sum())
+    rows = int(torch.unique(ids[valid]).numel())
+    active = int(valid.any(dim=1).sum())
+    return {**bound(ids.numel() * 8 + rows * row_bytes + active * q_bytes,
+                    n_valid * width * 3),
+            "valid_slots": n_valid, "distinct_rows": rows,
+            "active_queries": active}
+
+
+def _spread(xs) -> dict:
+    return {"mean": statistics.fmean(xs), "median": statistics.median(xs),
+            "min": min(xs), "max": max(xs)} if xs else {}
+
+
+def load_hop_baseline(path: Path):
+    """Build another ``gather_dist.cu`` (e.g. the parent commit's) with the
+    port's nvcc flags and load it; returns ``(lib, ptxas log)``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gather_dist import _FUNCTIONS
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "hop_baseline.so"
+    p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                        str(path)], capture_output=True, text=True)
+    require(p.returncode == 0, f"hop baseline build failed:\n{p.stdout}{p.stderr}")
+    return _build.bind(out, _FUNCTIONS), p.stdout + p.stderr
+
+
+def baseline_hop(lib, name: str):
+    """The port's wrapper ``name``, launching the baseline library's kernel
+    instead of its own (same checks and arguments)."""
+    G = importlib.import_module("repro_torch.kernels.gather_dist")
+    fn = getattr(G, name)
+
+    def run(ids, *args):
+        own, G._lib = G._lib, lambda: lib
+        try:
+            return fn(ids, *args)
+        finally:
+            G._lib = own
+    return run
+
+
+def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
+              n_plain=5) -> dict:
+    """The hop kernels at the calls the main path really makes.
+
+    Records every call of K1 in one ``fused`` l2 search of the eval queries,
+    of K2 in one ``fused_q8`` search, and of K1 in one 1024-query ``fused``
+    search at the adaptive daemon's starting rung (the serve shape), by
+    wrapping the names ``graphs.search`` looks up at call time.  Then, per
+    search: the index width R, the valid slots per call, each call's bound,
+    each call replayed once under CUDA events (sum and median), the plain
+    version timed on ``n_plain`` calls, and every ``check_every``-th call
+    held against the plain version, l2 and cosine.  ``baseline`` is a
+    library from ``load_hop_baseline``, timed and held on the same calls."""
+    from repro_torch import SearchParams
+    from repro_torch.graphs import search as S
+    from repro_torch.kernels import gather_rows_dist, gather_rows_dist_q8, ref
+    from repro_torch.obs import DEFAULT_LADDER
+
+    def unit(x):
+        return x / torch.clamp_min(torch.linalg.norm(x, dim=1, keepdim=True), 1e-9)
+
+    dev_idx = idx._device(dev)
+    R = dev_idx["neighbors"].shape[1]
+    inv_db = 1.0 / torch.clamp_min(torch.linalg.norm(dev_idx["db"], dim=1), 1e-9)
+    base = SearchParams(k=10, beam_width=64, max_hops=256)
+    runs = (
+        ("fused_l2", "gather_rows_dist", base.replace(kernel="fused"),
+         len(eval_q)),
+        ("fused_q8_l2", "gather_rows_dist_q8",
+         base.replace(kernel="fused_q8", rerank_mult=4), len(eval_q)),
+        ("fused_l2_serve", "gather_rows_dist",
+         DEFAULT_LADDER[2].params(SearchParams(k=10, kernel="fused")), 1024),
+    )
+    out = {}
+    for label, name, sp, nq in runs:
+        qd = torch.as_tensor(np.ascontiguousarray(eval_q[:nq]), device=dev)
+        with record_calls(S, name) as calls:
+            idx.search(qd, params=sp, telemetry_sink=None, device=dev)
+        torch.cuda.synchronize()
+        if name == "gather_rows_dist":
+            kern, plain = gather_rows_dist, ref.gather_rows_dist_ref
+            db, q, _ = calls[0][1]
+            width = db.shape[1]
+            row_bytes, q_bytes = 4 * width, 4 * width
+            cos_args = (db, unit(q), inv_db)
+        else:
+            kern, plain = gather_rows_dist_q8, ref.gather_rows_dist_q8_ref
+            codes, scale, zero, q, _ = calls[0][1]
+            width, nb = codes.shape[1], scale.shape[1]
+            row_bytes, q_bytes = width + 8 * nb, 4 * width
+            cos_args = (codes, scale, zero, unit(q), dev_idx["quant"].inv_norms)
+        hop = [i for i, (ids, _) in enumerate(calls) if ids.shape[1] == R]
+        require(len(hop) > 0 and len(hop) >= len(calls) - 1,
+                f"{label}: the hop calls are not (B, {R})")
+        bounds = [hop_bound(torch, calls[i][0], row_bytes, q_bytes, width)
+                  for i in hop]
+        versions = [("kernel", kern)]
+        if baseline is not None:
+            versions.append(("baseline", baseline_hop(baseline, name)))
+        errs = dict.fromkeys((v for v, _ in versions), 0.0)
+        checked = hop[::check_every]
+        for i in checked:
+            ids, args = calls[i]
+            for metric, a in (("l2", args), ("cosine", cos_args)):
+                want = plain(ids, *a)
+                for v, fn in versions:
+                    errs[v] = max(errs[v], hold(
+                        torch, np, f"{v} {name} {label}/{metric} call {i}",
+                        fn(ids, *a), want, ids))
+                del want
+        rec = {
+            "B": len(qd), "R": R, "width": width, "calls": len(calls),
+            "hop_calls": len(hop), "checked_calls": len(checked),
+            "valid_slots_per_call": _spread([b["valid_slots"] for b in bounds]),
+            "active_queries_per_call": _spread(
+                [b["active_queries"] for b in bounds]),
+            "distinct_rows_per_call": _spread(
+                [b["distinct_rows"] for b in bounds]),
+            "bound_ms_median": statistics.median(b["bound_ms"] for b in bounds),
+            "bound_ms_sum": sum(b["bound_ms"] for b in bounds),
+            "bound_by": statistics.mode(b["bound_by"] for b in bounds),
+            "valid_slots": [b["valid_slots"] for b in bounds],
+        }
+        for v, fn in versions:
+            t = cuda_times(torch, lambda j: fn(calls[j][0], *calls[j][1]),
+                           len(calls))
+            rec[v] = {"ms_median": statistics.median(t[i] for i in hop),
+                      "ms_sum": sum(t), "max_abs_err": errs[v],
+                      "ms": [t[i] for i in hop]}
+        picks = hop[::max(1, len(hop) // n_plain)][:n_plain]
+        rec["plain_ms_median"] = cuda_ms(
+            torch, lambda j: plain(calls[picks[j % len(picks)]][0],
+                                   *calls[picks[j % len(picks)]][1]),
+            len(picks))
+        out[label] = rec
+        log(f"hop {label} {name}: " + json.dumps(
+            {k: v if not isinstance(v, dict) else
+             {kk: vv for kk, vv in v.items() if kk != "ms"}
+             for k, v in rec.items() if k != "valid_slots"}))
+        del calls
+    return out
+
+
 def agreement(a, b) -> float:
     return float((a == b).mean())
 
@@ -595,6 +788,10 @@ def main(argv=None) -> int:
                     help="training queries and evaluation queries, each")
     ap.add_argument("--out", type=Path, default=None,
                     help="write the full record to this JSON file")
+    ap.add_argument("--hop-baseline", type=Path, default=None,
+                    help="another gather_dist.cu (e.g. the parent commit's): "
+                         "its hop kernels are timed and held on the same "
+                         "recorded calls as the port's")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -619,7 +816,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    from repro_torch import GateConfig, GateIndex, exact_knn
+    from repro_torch import GateConfig, GateIndex, SearchParams, exact_knn
     from repro_torch import kernels as K
     from repro_torch.data.synthetic import make_database, train_eval_query_split
     from repro_torch.kernels import _build
@@ -683,6 +880,11 @@ def main(argv=None) -> int:
     log("launches on the main path: " + json.dumps(launches))
     prof = profile_search(torch, idx, eval_q, dev, l2["gate/fused"]["seconds"])
     log("profile gate/fused l2: " + json.dumps(prof))
+    prof_q8 = profile_search(
+        torch, idx, eval_q, dev, l2["gate/fused_q8"]["seconds"],
+        SearchParams(k=10, beam_width=64, max_hops=256, kernel="fused_q8",
+                     rerank_mult=4))
+    log("profile gate/fused_q8 l2: " + json.dumps(prof_q8))
 
     agree_l2 = agreement(l2["gate/fused"]["ids"], l2["gate/xla"]["ids"])
     agree_cos = agreement(cos["gate/fused"]["ids"], cos["gate/xla"]["ids"])
@@ -705,6 +907,15 @@ def main(argv=None) -> int:
             require(v["ids"].shape == (len(eval_q), 10)
                     and (v["ids"] >= 0).all(), "search returned invalid ids")
 
+    # 7b. the hop kernels at the calls the searches above really make
+    baseline = None
+    if args.hop_baseline is not None:
+        baseline, blog = load_hop_baseline(args.hop_baseline)
+        for ln in blog.splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"  ptxas hop baseline: {ln.strip()}")
+    hop = hop_phase(torch, np, idx, eval_q, dev, baseline)
+
     # 8. the serve path; its own counts (the two daemons' runs)
     serve = serve_phase(torch, np, idx, eval_q, dev)
     serve_launches = serve["launches"]
@@ -725,16 +936,28 @@ def main(argv=None) -> int:
                 "topk_min": "src/repro/kernels/topk.py:40",
                 "l2dist": "src/repro/kernels/l2dist.py:49",
                 "gather_dist": "src/repro/kernels/gather_dist.py:59"}
+    # K1 and K2 are reported at the 10,000-query search's own calls (hop
+    # phase); their fixed-shape (1024, 32) rows stay beside them
+    hop_of = {"gather_rows_dist": "fused_l2", "gather_rows_dist_q8": "fused_q8_l2"}
     line = []
     for name in sources:
-        if name in kres:  # K1-K3: the search and serve paths
-            rec = kres[name]
-            main_rec = rec.get("l2", rec.get("score"))
-            err = max(v["max_abs_err"] for v in rec.values())
+        if name in hop_of:  # K1, K2: the search and serve paths
+            h = hop[hop_of[name]]
+            fixed = kres[name]
+            main_rec = {"ms": h["kernel"]["ms_median"],
+                        "plain_ms": h["plain_ms_median"],
+                        "bound_ms": h["bound_ms_median"],
+                        "bound_by": h["bound_by"]}
+            err = max([h["kernel"]["max_abs_err"]]
+                      + [v["max_abs_err"] for v in fixed.values()])
+            by_path = {"search": launches[name], "serve": serve_launches[name]}
+        elif name in kres:  # K3: the search and serve paths
+            main_rec = kres[name]["score"]
+            err = main_rec["max_abs_err"]
             by_path = {"search": launches[name], "serve": serve_launches[name]}
         else:             # K4-K6: the kernel API path
-            rec = main_rec = api[name]
-            err = rec["max_abs_err"]
+            main_rec = api[name]
+            err = main_rec["max_abs_err"]
             by_path = {"api": api["launches"][name]}
         entry = {
             "name": name, "route": "cuda", "source": sources[name],
@@ -746,12 +969,15 @@ def main(argv=None) -> int:
         }
         if name == "twotower_score":
             entry["library_call"] = "torch.nn.functional.cosine_similarity"
-        elif name in kres:
+        elif name in hop_of:
             entry["library_note"] = "no single PyTorch call gathers rows and scores them"
-            entry["cosine"] = {k: rec["cosine"][k] for k in
-                               ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+            entry["shape"] = [h["B"], h["R"]]
+            entry["ms_per_search"] = h["kernel"]["ms_sum"]
+            entry["fixed_shape_1024x32"] = {
+                m: {k: fixed[m][k] for k in ("ms", "plain_ms", "bound_ms")}
+                for m in ("l2", "cosine")}
         else:
-            entry["library_call"] = rec["library_call"]
+            entry["library_call"] = main_rec["library_call"]
         line.append(entry)
 
     record = {
@@ -763,7 +989,8 @@ def main(argv=None) -> int:
         "search_cosine": {k: {kk: vv for kk, vv in v.items() if kk != "ids"}
                           for k, v in cos.items()},
         "agreement": {"l2": agree_l2, "cosine": agree_cos},
-        "launches": launches, "profile_fused_l2": prof, "api": api,
+        "launches": launches, "profile_fused_l2": prof,
+        "profile_fused_q8_l2": prof_q8, "hop": hop, "api": api,
         "serve": serve,
         "seconds": time.perf_counter() - t_start,
     }

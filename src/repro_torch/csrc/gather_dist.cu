@@ -7,40 +7,69 @@
 // The TPU kernels take one query's R ids as scalar prefetch and DMA one row
 // per grid step.  Here one launch serves the whole batch: ids (B, R).
 //
-// What bounds them on an H100: device-memory bytes.  Each valid slot reads
-// one database row (4d bytes fp32, or Dp + 8*nb bytes from the int8
-// codebook) at a random address, and does ~3 flops per byte: far under the
-// card's ~20 fp32 flops per byte of bandwidth.
-//
-// What the design does about it:
-//   * one block per query stages q in shared memory once, so the only
-//     device-memory traffic per slot is the row itself (+ inv norm);
-//   * one warp per (b, r) slot: lane i reads 16 B (float4, fp32) or 4 B
-//     (char4, int8) at stride 32, so a d = 128 fp32 row is one coalesced
-//     512 B request and a 128-code block one 128 B request;
-//   * an invalid slot (id < 0) writes 3.4e38 and loads nothing, so the
-//     frozen and padded slots of a lockstep batch cost no row traffic;
-//   * the warp reduces with shuffles; no shared-memory reduction, no atomics.
+// The shape the search launches K1 and K2 at: R is the index's padded
+// degree (247 on a repaired 1M NSG), and most slots are -1: a row holds its
+// node's neighbours that the dedup left (~15), and a frozen query's row is
+// -1 throughout.  What bounds them on an H100 is device-memory bytes (the
+// ids read and the outputs written, 4 B a slot each, plus each valid row:
+// 4d bytes fp32, or Dp + 8*nb from the int8 codebook) at ~3 flops per row
+// byte, far under the card's ~20 fp32 flops per byte of bandwidth.  What
+// kept a first design (one warp per slot, an id load, a branch and a row
+// load in one dependent chain, 31 times per warp at R = 247) far from that
+// bound was latency, not bytes.  This design pays a few long latencies per
+// query instead:
+//   * front (both kernels): one block per query; thread t reads id t in one
+//     coalesced pass (looping only if R > 256), writes 3.4e38 (id < 0) or
+//     NaN (id >= N) for its slot if invalid, and the valid (slot, id) pairs
+//     are compacted into shared memory in slot order (a ballot and popc per
+//     warp, a scan over the 8 warp counts).  A block with no valid id is
+//     done: a frozen query costs one read of its ids and one write of its
+//     outputs, and no read of q or of any row;
+//   * rows by Hopper's bulk async copy: warp 0 issues one
+//     cp.async.bulk.shared::cluster.global per valid row (one per lane) into
+//     a ring of S row slots, two stages of S/2 rows, each completing on its
+//     own mbarrier armed with expect_tx for the stage's bytes; q rides on
+//     the first stage.  Stage k+2 is issued once every warp has consumed
+//     stage k (phase parity per barrier).  S is sized from the row width so
+//     q plus the ring stays near 16 KB and 8 blocks of 256 threads fit on an
+//     SM (S = 32 at d = 128);
+//   * the per-row scalars too small for the bulk copy's 16-byte granule
+//     (the cosine inv norm, K2's first-block scale and zero) are loaded for
+//     all of a chunk's valid rows at once, one thread each, while the first
+//     copies are in flight: one latency, not one per stage;
+//   * compute from shared memory, one row per warp at a time: lane i takes
+//     float4 (K1) or char4 (K2) i at stride 32, then the xor-shuffle tree;
+//   * widths the bulk copy cannot take (a row not a multiple of 16 bytes,
+//     a base not 16-byte aligned, or a ring that does not fit beside q)
+//     keep the same front and load rows through registers, 4 rows of a
+//     warp in flight before any is reduced.
 // The formula is repro's, element by element: sum((v - q)^2) for L2 (not the
 // dot form), and 1 - sum((v * inv[v]) * q_hat) for cosine, every product and
 // sum rounded on its own (no FMA contraction) as the plain PyTorch version
-// rounds them, so the two differ only in the order of the d-term sum.  An
-// id >= N writes NaN instead of reading out of bounds.
+// rounds them, so the two differ only in the order of the d-term sum.
 //
-// K6 takes rows the caller has already gathered, (B, R, d) contiguous, and
-// the same layout serves it: one block per query with q in shared memory,
-// one warp per (b, r) slot, float4 loads of the row vecs[b, r, :].  It is
-// bound by the bytes of that block (4d per valid slot, read once, in order).
-// It computes the TPU kernel's dot form max(|v|^2 - 2 v.q + |q|^2, 0), all
-// three sums in the one pass; an id < 0 writes exactly 3.4e38 and reads
-// nothing of its row.
+// K6 takes rows the caller has already gathered, (B, R, d) contiguous: one
+// block per query with q in shared memory, one warp per (b, r) slot, float4
+// loads of the row vecs[b, r, :].  It is bound by the bytes of that block
+// (4d per valid slot, read once, in order).  It computes the TPU kernel's
+// dot form max(|v|^2 - 2 v.q + |q|^2, 0), all three sums in the one pass; an
+// id < 0 writes exactly 3.4e38 and reads nothing of its row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 constexpr float kInf = 3.4e38f;
+// shared-memory head of K1/K2: 2 mbarriers, 8 warp counts, 256 (slot, id)
+// pairs, 3 x 256 per-row scalars (scale, zero, inv); q and the ring follow,
+// 16-byte aligned
+constexpr int kHead = 16 + 4 * kWarps + 8 * kThreads + 12 * kThreads;
+constexpr int kRingBytes = 16 * 1024;  // ring target: rows of one block
+constexpr int kMaxRing = 32;           // row slots: two stages of 16
+constexpr int kRegRows = 4;            // register path: rows in flight per warp
+constexpr size_t kMaxSmem = 232448;    // 227 KB a block may opt into
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -56,96 +85,400 @@ __device__ __forceinline__ float term(float v, float w, float iv) {
   return __fmul_rn(a, a);
 }
 
+// c * scale + zero as two rounded ops, as the plain version dequantizes.
+__device__ __forceinline__ float dq(signed char c, float s, float z) {
+  return __fadd_rn(__fmul_rn((float)c, s), z);
+}
+
 // Stage one query row (n floats) into shared memory.
 __device__ __forceinline__ void stage_query(float* qs, const float* q, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) qs[i] = q[i];
   __syncthreads();
 }
 
-template <bool kCos, bool kVec4>
-__global__ void __launch_bounds__(kWarps * 32)
-rows_f32_kernel(const int* __restrict__ ids, const float* __restrict__ db,
-                const float* __restrict__ q, const float* __restrict__ inv,
-                float* __restrict__ out, int R, long long N, int d) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.x;
-  stage_query(qs, q + (long long)b * d, d);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < R; r += kWarps) {
-    const long long slot = (long long)b * R + r;
-    const int id = ids[slot];
-    if (id < 0 || id >= N) {
-      if (lane == 0) out[slot] = id < 0 ? kInf : __int_as_float(0x7fc00000);
-      continue;
-    }
-    const float* row = db + (long long)id * d;
-    const float iv = kCos ? __ldg(inv + id) : 0.f;
-    float acc = 0.f;
-    if (kVec4) {
-      const float4* row4 = reinterpret_cast<const float4*>(row);
-      const float4* q4 = reinterpret_cast<const float4*>(qs);
-      for (int i = lane; i < (d >> 2); i += 32) {
-        const float4 v = __ldg(row4 + i);
-        const float4 w = q4[i];
-        acc = __fadd_rn(acc, term<kCos>(v.x, w.x, iv));
-        acc = __fadd_rn(acc, term<kCos>(v.y, w.y, iv));
-        acc = __fadd_rn(acc, term<kCos>(v.z, w.z, iv));
-        acc = __fadd_rn(acc, term<kCos>(v.w, w.w, iv));
-      }
-    } else {  // any d, odd included: scalar loads, lane i takes i, i+32, ...
-      for (int i = lane; i < d; i += 32)
-        acc = __fadd_rn(acc, term<kCos>(__ldg(row + i), qs[i], iv));
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) out[slot] = kCos ? __fsub_rn(1.f, acc) : acc;
+// ---------------------------------------------------- mbarrier + bulk copy
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The one arrival of a stage, with the bytes its copies will deliver.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed.  A phase
+// that never completes (a copy that faulted) traps after ~2^26 polls, so
+// the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
   }
 }
 
-template <bool kCos>
-__global__ void __launch_bounds__(kWarps * 32)
-rows_q8_kernel(const int* __restrict__ ids, const int8_t* __restrict__ codes,
-               const float* __restrict__ scale, const float* __restrict__ zero,
-               const float* __restrict__ q, const float* __restrict__ inv,
-               float* __restrict__ out, int R, long long N, int dp, int nb,
-               int blk) {
+// Order this thread's earlier generic-proxy reads of shared memory before
+// the async-proxy writes of the bulk copies it issues next (a ring slot is
+// refilled after it was read).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Global -> shared bulk copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ------------------------------------------------------------- the front
+// Threads read ids[r0 + t] in one coalesced pass, write 3.4e38 (id < 0) or
+// NaN (id >= N) for the invalid slots, and compact the valid (slot, id)
+// pairs into `pairs` in slot order.  Returns the number of valid pairs;
+// ends on a block barrier, so every thread sees them.
+__device__ __forceinline__ int front(const int* __restrict__ ids,
+                                     float* __restrict__ out, int r0, int R,
+                                     long long N, int2* pairs, int* wcount) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = r0 + threadIdx.x;
+  bool ok = false;
+  int id = -1;
+  if (r < R) {
+    id = __ldg(ids + r);
+    ok = id >= 0 && id < N;
+    if (!ok) out[r] = id < 0 ? kInf : __int_as_float(0x7fc00000);
+  }
+  const unsigned m = __ballot_sync(0xffffffffu, ok);
+  if (lane == 0) wcount[warp] = __popc(m);
+  __syncthreads();
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = wcount[w];
+    base += w < warp ? c : 0;
+    total += c;
+  }
+  if (ok) pairs[base + __popc(m & ((1u << lane) - 1u))] = make_int2(r, id);
+  __syncthreads();
+  return total;
+}
+
+struct Head {
+  uint64_t* bar;  // [2]
+  int* wcount;    // [kWarps]
+  int2* pairs;    // [kThreads]
+  float* scale;   // [kThreads] per valid row: K2's first-block scale,
+  float* zero;    // [kThreads]   zero,
+  float* inv;     // [kThreads]   and the cosine inv norm
+  char* tail;     // q, then the ring
+};
+
+__device__ __forceinline__ Head head() {
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.x;
-  stage_query(qs, q + (long long)b * dp, dp);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  char* s = reinterpret_cast<char*>(smem4);
+  float* scal = reinterpret_cast<float*>(s + 16 + 4 * kWarps + 8 * kThreads);
+  return {reinterpret_cast<uint64_t*>(s), reinterpret_cast<int*>(s + 16),
+          reinterpret_cast<int2*>(s + 16 + 4 * kWarps), scal,
+          scal + kThreads, scal + 2 * kThreads, s + kHead};
+}
+
+// The bulk pipeline both kernels share, over one chunk's n valid rows.
+// Stage k holds rows [k*T, min(n, (k+1)*T)) in ring half (g + k) & 1 and
+// completes on bar[(g + k) & 1] at parity ((g + k) >> 1) & 1, g counting
+// the stages of earlier chunks.  `q_bytes` of q ride on the chunk's first
+// stage when nonzero.  Once the first two stages are in flight, every
+// thread runs prologue(): the plain loads of per-row scalars too small for
+// the bulk copy's 16-byte granule, one thread per valid row, all in flight
+// at once (it ends on a block barrier if it stores anything).  Then every
+// warp calls consume(j0, m, buf) for each stage's rows [j0, j0 + m), in
+// `buf`, once they have landed.
+template <typename Prologue, typename Consume>
+__device__ __forceinline__ void bulk_rows(const Head& h, const char* rows,
+                                          uint32_t row_bytes, int n, int T,
+                                          char* ring, uint32_t& g, void* qs,
+                                          const void* q, uint32_t q_bytes,
+                                          Prologue prologue, Consume consume) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ns = (n + T - 1) / T;
+  auto issue = [&](int k) {
+    const uint32_t gk = g + k;
+    const int j0 = k * T, m = min(T, n - j0);
+    uint64_t* bar = &h.bar[gk & 1];
+    char* buf = ring + (size_t)(gk & 1) * T * row_bytes;
+    const uint32_t extra = k == 0 ? q_bytes : 0u;
+    if (lane == 0) {
+      mbar_expect_tx(bar, m * row_bytes + extra);
+      if (extra) bulk_load(qs, q, extra, bar);
+    }
+    __syncwarp();
+    for (int j = lane; j < m; j += 32)
+      bulk_load(buf + (size_t)j * row_bytes,
+                rows + (long long)h.pairs[j0 + j].y * row_bytes, row_bytes, bar);
+  };
+  if (warp == 0) {
+    issue(0);
+    if (ns > 1) issue(1);
+  }
+  prologue();
+  for (int k = 0; k < ns; ++k) {
+    const uint32_t gk = g + k;
+    const int j0 = k * T;
+    mbar_wait(&h.bar[gk & 1], (gk >> 1) & 1u);
+    consume(j0, min(T, n - j0), ring + (size_t)(gk & 1) * T * row_bytes);
+    __syncthreads();  // every warp is done with this ring half
+    if (warp == 0 && k + 2 < ns) {
+      fence_proxy_async();
+      issue(k + 2);
+    }
+  }
+  g += ns;
+}
+
+// ---------------------------------------------------------------- K1
+template <bool kCos>
+__global__ void __launch_bounds__(kThreads, 8)
+rows_f32_bulk(const int* __restrict__ ids, const float* __restrict__ db,
+              const float* __restrict__ q, const float* __restrict__ inv,
+              float* __restrict__ out, int R, long long N, int d, int T) {
+  const Head h = head();
+  float* qs = reinterpret_cast<float*>(h.tail);
+  char* ring = h.tail + 4 * d;
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ids += (long long)b * R;
+  out += (long long)b * R;
+  if (threadIdx.x == 0) {
+    mbar_init(&h.bar[0]);
+    mbar_init(&h.bar[1]);
+    mbar_init_fence();
+  }  // the front's barriers publish the init
+  uint32_t g = 0;
+  uint32_t q_bytes = 4u * d;  // q is copied once, with the first stage
   const float4* q4 = reinterpret_cast<const float4*>(qs);
-  for (int r = warp; r < R; r += kWarps) {
-    const long long slot = (long long)b * R + r;
-    const int id = ids[slot];
-    if (id < 0 || id >= N) {
-      if (lane == 0) out[slot] = id < 0 ? kInf : __int_as_float(0x7fc00000);
-      continue;
+  for (int r0 = 0; r0 < R; r0 += kThreads) {
+    const int n = front(ids, out, r0, R, N, h.pairs, h.wcount);
+    if (n == 0) continue;
+    const int2* pairs = h.pairs;
+    bulk_rows(h, reinterpret_cast<const char*>(db), 4u * d, n, T, ring, g, qs,
+              q + (long long)b * d, q_bytes,
+              [&] {  // each valid row's inv norm, under cosine
+      if (!kCos) return;
+      if (threadIdx.x < n) h.inv[threadIdx.x] = __ldg(inv + pairs[threadIdx.x].y);
+      __syncthreads();
+    }, [&](int j0, int m, const char* buf) {
+      for (int j = warp; j < m; j += kWarps) {
+        const float iv = kCos ? h.inv[j0 + j] : 0.f;
+        const float4* v4 = reinterpret_cast<const float4*>(buf) + (size_t)j * (d >> 2);
+        float acc = 0.f;
+        for (int i = lane; i < (d >> 2); i += 32) {
+          const float4 v = v4[i];
+          const float4 w = q4[i];
+          acc = __fadd_rn(acc, term<kCos>(v.x, w.x, iv));
+          acc = __fadd_rn(acc, term<kCos>(v.y, w.y, iv));
+          acc = __fadd_rn(acc, term<kCos>(v.z, w.z, iv));
+          acc = __fadd_rn(acc, term<kCos>(v.w, w.w, iv));
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) out[pairs[j0 + j].x] = kCos ? __fsub_rn(1.f, acc) : acc;
+      }
+    });
+    q_bytes = 0;
+  }
+}
+
+// Any width or alignment: the same front, rows through registers (scalar
+// loads, lane i takes i, i+32, ...), kRegRows rows of a warp in flight.
+template <bool kCos>
+__global__ void __launch_bounds__(kThreads)
+rows_f32_regs(const int* __restrict__ ids, const float* __restrict__ db,
+              const float* __restrict__ q, const float* __restrict__ inv,
+              float* __restrict__ out, int R, long long N, int d) {
+  const Head h = head();
+  float* qs = reinterpret_cast<float*>(h.tail);
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ids += (long long)b * R;
+  out += (long long)b * R;
+  bool q_pending = true;
+  for (int r0 = 0; r0 < R; r0 += kThreads) {
+    const int n = front(ids, out, r0, R, N, h.pairs, h.wcount);
+    if (n == 0) continue;
+    if (q_pending) {
+      stage_query(qs, q + (long long)b * d, d);
+      q_pending = false;
     }
-    const char4* row4 = reinterpret_cast<const char4*>(codes + (long long)id * dp);
-    const float* sc = scale + (long long)id * nb;
-    const float* zr = zero + (long long)id * nb;
-    const float iv = kCos ? __ldg(inv + id) : 0.f;
-    float acc = 0.f;
-    // 32 lanes x 4 codes = one 128-code block per step; blk % 4 == 0, so
-    // a lane's 4 codes share one (scale, zero) pair
-    for (int i = lane; i < (dp >> 2); i += 32) {
-      const int blkid = (i << 2) / blk;
-      const float s = __ldg(sc + blkid), z = __ldg(zr + blkid);
-      const char4 c = __ldg(row4 + i);
-      const float4 w = q4[i];
-      // c * scale + zero as two rounded ops, as the plain version does
-      const float v0 = __fadd_rn(__fmul_rn((float)c.x, s), z);
-      const float v1 = __fadd_rn(__fmul_rn((float)c.y, s), z);
-      const float v2 = __fadd_rn(__fmul_rn((float)c.z, s), z);
-      const float v3 = __fadd_rn(__fmul_rn((float)c.w, s), z);
-      acc = __fadd_rn(acc, term<kCos>(v0, w.x, iv));
-      acc = __fadd_rn(acc, term<kCos>(v1, w.y, iv));
-      acc = __fadd_rn(acc, term<kCos>(v2, w.z, iv));
-      acc = __fadd_rn(acc, term<kCos>(v3, w.w, iv));
+    for (int j0 = warp * kRegRows; j0 < n; j0 += kWarps * kRegRows) {
+      const float* row[kRegRows];
+      float iv[kRegRows], acc[kRegRows];
+#pragma unroll
+      for (int u = 0; u < kRegRows; ++u) {
+        const bool on = j0 + u < n;
+        const int id = on ? h.pairs[j0 + u].y : 0;
+        row[u] = on ? db + (long long)id * d : nullptr;
+        iv[u] = kCos && on ? __ldg(inv + id) : 0.f;
+        acc[u] = 0.f;
+      }
+      for (int i = lane; i < d; i += 32) {
+        float v[kRegRows];
+#pragma unroll
+        for (int u = 0; u < kRegRows; ++u) v[u] = row[u] ? __ldg(row[u] + i) : 0.f;
+        const float w = qs[i];
+#pragma unroll
+        for (int u = 0; u < kRegRows; ++u)
+          acc[u] = __fadd_rn(acc[u], term<kCos>(v[u], w, iv[u]));
+      }
+#pragma unroll
+      for (int u = 0; u < kRegRows; ++u) {
+        const float a = warp_sum(acc[u]);
+        if (lane == 0 && row[u])
+          out[h.pairs[j0 + u].x] = kCos ? __fsub_rn(1.f, a) : a;
+      }
     }
-    acc = warp_sum(acc);
-    if (lane == 0) out[slot] = kCos ? __fsub_rn(1.f, acc) : acc;
+  }
+}
+
+// ---------------------------------------------------------------- K2
+// 32 lanes x 4 codes = one 128-code block per step; blk % 4 == 0, so a
+// lane's 4 codes share one (scale, zero) pair.
+template <bool kCos>
+__global__ void __launch_bounds__(kThreads, 8)
+rows_q8_bulk(const int* __restrict__ ids, const int8_t* __restrict__ codes,
+             const float* __restrict__ scale, const float* __restrict__ zero,
+             const float* __restrict__ q, const float* __restrict__ inv,
+             float* __restrict__ out, int R, long long N, int dp, int nb,
+             int blk, int T) {
+  const Head h = head();
+  float* qs = reinterpret_cast<float*>(h.tail);
+  char* ring = h.tail + 4 * dp;
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ids += (long long)b * R;
+  out += (long long)b * R;
+  if (threadIdx.x == 0) {
+    mbar_init(&h.bar[0]);
+    mbar_init(&h.bar[1]);
+    mbar_init_fence();
+  }
+  uint32_t g = 0;
+  uint32_t q_bytes = 4u * dp;
+  const float4* q4 = reinterpret_cast<const float4*>(qs);
+  for (int r0 = 0; r0 < R; r0 += kThreads) {
+    const int n = front(ids, out, r0, R, N, h.pairs, h.wcount);
+    if (n == 0) continue;
+    const int2* pairs = h.pairs;
+    bulk_rows(h, reinterpret_cast<const char*>(codes), (uint32_t)dp, n, T, ring,
+              g, qs, q + (long long)b * dp, q_bytes,
+              [&] {  // each valid row's first-block scale and zero (and inv)
+      if (threadIdx.x < n) {
+        const long long id = pairs[threadIdx.x].y;
+        h.scale[threadIdx.x] = __ldg(scale + id * nb);
+        h.zero[threadIdx.x] = __ldg(zero + id * nb);
+        if (kCos) h.inv[threadIdx.x] = __ldg(inv + id);
+      }
+      __syncthreads();
+    }, [&](int j0, int m, const char* buf) {
+      for (int j = warp; j < m; j += kWarps) {
+        const float sr = h.scale[j0 + j], zr = h.zero[j0 + j];
+        const float iv = kCos ? h.inv[j0 + j] : 0.f;
+        const long long id = pairs[j0 + j].y;
+        const char4* c4 = reinterpret_cast<const char4*>(buf) + (size_t)j * (dp >> 2);
+        float acc = 0.f;
+        for (int i = lane; i < (dp >> 2); i += 32) {
+          const int blkid = (i << 2) / blk;
+          const float s = blkid == 0 ? sr : __ldg(scale + id * nb + blkid);
+          const float z = blkid == 0 ? zr : __ldg(zero + id * nb + blkid);
+          const char4 cc = c4[i];
+          const float4 w = q4[i];
+          acc = __fadd_rn(acc, term<kCos>(dq(cc.x, s, z), w.x, iv));
+          acc = __fadd_rn(acc, term<kCos>(dq(cc.y, s, z), w.y, iv));
+          acc = __fadd_rn(acc, term<kCos>(dq(cc.z, s, z), w.z, iv));
+          acc = __fadd_rn(acc, term<kCos>(dq(cc.w, s, z), w.w, iv));
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) out[pairs[j0 + j].x] = kCos ? __fsub_rn(1.f, acc) : acc;
+      }
+    });
+    q_bytes = 0;
+  }
+}
+
+// Any Dp the wrapper takes (blk % 4 == 0, codes 4-byte aligned): the same
+// front, char4 code loads through registers, kRegRows rows in flight.
+template <bool kCos>
+__global__ void __launch_bounds__(kThreads)
+rows_q8_regs(const int* __restrict__ ids, const int8_t* __restrict__ codes,
+             const float* __restrict__ scale, const float* __restrict__ zero,
+             const float* __restrict__ q, const float* __restrict__ inv,
+             float* __restrict__ out, int R, long long N, int dp, int nb,
+             int blk) {
+  const Head h = head();
+  float* qs = reinterpret_cast<float*>(h.tail);
+  const float4* q4 = reinterpret_cast<const float4*>(qs);
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ids += (long long)b * R;
+  out += (long long)b * R;
+  bool q_pending = true;
+  for (int r0 = 0; r0 < R; r0 += kThreads) {
+    const int n = front(ids, out, r0, R, N, h.pairs, h.wcount);
+    if (n == 0) continue;
+    if (q_pending) {
+      stage_query(qs, q + (long long)b * dp, dp);
+      q_pending = false;
+    }
+    for (int j0 = warp * kRegRows; j0 < n; j0 += kWarps * kRegRows) {
+      long long id[kRegRows];
+      bool on[kRegRows];
+      float iv[kRegRows], acc[kRegRows];
+#pragma unroll
+      for (int u = 0; u < kRegRows; ++u) {
+        on[u] = j0 + u < n;
+        id[u] = on[u] ? h.pairs[j0 + u].y : 0;
+        iv[u] = kCos && on[u] ? __ldg(inv + id[u]) : 0.f;
+        acc[u] = 0.f;
+      }
+      for (int i = lane; i < (dp >> 2); i += 32) {
+        const int blkid = (i << 2) / blk;
+        char4 c[kRegRows];
+        float s[kRegRows], z[kRegRows];
+#pragma unroll
+        for (int u = 0; u < kRegRows; ++u) {
+          c[u] = on[u] ? __ldg(reinterpret_cast<const char4*>(codes + id[u] * dp) + i)
+                       : make_char4(0, 0, 0, 0);
+          s[u] = on[u] ? __ldg(scale + id[u] * nb + blkid) : 0.f;
+          z[u] = on[u] ? __ldg(zero + id[u] * nb + blkid) : 0.f;
+        }
+        const float4 w = q4[i];
+#pragma unroll
+        for (int u = 0; u < kRegRows; ++u) {
+          acc[u] = __fadd_rn(acc[u], term<kCos>(dq(c[u].x, s[u], z[u]), w.x, iv[u]));
+          acc[u] = __fadd_rn(acc[u], term<kCos>(dq(c[u].y, s[u], z[u]), w.y, iv[u]));
+          acc[u] = __fadd_rn(acc[u], term<kCos>(dq(c[u].z, s[u], z[u]), w.z, iv[u]));
+          acc[u] = __fadd_rn(acc[u], term<kCos>(dq(c[u].w, s[u], z[u]), w.w, iv[u]));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRegRows; ++u) {
+        const float a = warp_sum(acc[u]);
+        if (lane == 0 && on[u])
+          out[h.pairs[j0 + u].x] = kCos ? __fsub_rn(1.f, a) : a;
+      }
+    }
   }
 }
 
@@ -200,6 +533,13 @@ cudaError_t allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Ring rows for a row of `row_bytes`: ~kRingBytes, even, 2..kMaxRing.
+int ring_rows(size_t row_bytes) {
+  size_t s = kRingBytes / row_bytes;
+  s = s < 2 ? 2 : (s > kMaxRing ? kMaxRing : s);
+  return (int)(s & ~(size_t)1);
+}
+
 }  // namespace
 
 extern "C" const char* repro_cuda_error_string(int err) {
@@ -212,28 +552,31 @@ extern "C" int gather_rows_dist_f32(const void* ids, const void* db,
                                     const void* q, const void* inv, void* out,
                                     int B, int R, long long N, int d,
                                     void* stream) {
-  const size_t smem = (size_t)d * sizeof(float);
-  const bool vec4 = (d % 4 == 0) && ((uintptr_t)db % 16 == 0);
+  const int S = ring_rows(4 * (size_t)d);
+  const size_t bulk_smem = kHead + 4 * (size_t)d * (1 + S);
+  const bool bulk = d % 4 == 0 && (uintptr_t)db % 16 == 0 &&
+                    (uintptr_t)q % 16 == 0 && bulk_smem <= kMaxSmem;
+  const size_t smem = bulk ? bulk_smem : kHead + 4 * (size_t)d;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(B), block(kWarps * 32);
+  const dim3 grid(B), block(kThreads);
   const int* i = (const int*)ids;
   const float* x = (const float*)db;
   const float* qq = (const float*)q;
   const float* iv = (const float*)inv;
   float* o = (float*)out;
   cudaError_t e;
-  if (inv == nullptr && vec4) {
-    if ((e = allow_smem(rows_f32_kernel<false, true>, smem))) return e;
-    rows_f32_kernel<false, true><<<grid, block, smem, s>>>(i, x, qq, iv, o, R, N, d);
+  if (bulk && inv == nullptr) {
+    if ((e = allow_smem(rows_f32_bulk<false>, smem))) return e;
+    rows_f32_bulk<false><<<grid, block, smem, s>>>(i, x, qq, iv, o, R, N, d, S / 2);
+  } else if (bulk) {
+    if ((e = allow_smem(rows_f32_bulk<true>, smem))) return e;
+    rows_f32_bulk<true><<<grid, block, smem, s>>>(i, x, qq, iv, o, R, N, d, S / 2);
   } else if (inv == nullptr) {
-    if ((e = allow_smem(rows_f32_kernel<false, false>, smem))) return e;
-    rows_f32_kernel<false, false><<<grid, block, smem, s>>>(i, x, qq, iv, o, R, N, d);
-  } else if (vec4) {
-    if ((e = allow_smem(rows_f32_kernel<true, true>, smem))) return e;
-    rows_f32_kernel<true, true><<<grid, block, smem, s>>>(i, x, qq, iv, o, R, N, d);
+    if ((e = allow_smem(rows_f32_regs<false>, smem))) return e;
+    rows_f32_regs<false><<<grid, block, smem, s>>>(i, x, qq, iv, o, R, N, d);
   } else {
-    if ((e = allow_smem(rows_f32_kernel<true, false>, smem))) return e;
-    rows_f32_kernel<true, false><<<grid, block, smem, s>>>(i, x, qq, iv, o, R, N, d);
+    if ((e = allow_smem(rows_f32_regs<true>, smem))) return e;
+    rows_f32_regs<true><<<grid, block, smem, s>>>(i, x, qq, iv, o, R, N, d);
   }
   return (int)cudaGetLastError();
 }
@@ -246,10 +589,14 @@ extern "C" int gather_rows_dist_q8(const void* ids, const void* codes,
                                    const void* q, const void* inv, void* out,
                                    int B, int R, long long N, int dp, int nb,
                                    void* stream) {
-  const size_t smem = (size_t)dp * sizeof(float);
+  const int S = ring_rows((size_t)dp);
+  const size_t bulk_smem = kHead + 4 * (size_t)dp + (size_t)S * dp;
+  const bool bulk = dp % 16 == 0 && (uintptr_t)codes % 16 == 0 &&
+                    (uintptr_t)q % 16 == 0 && bulk_smem <= kMaxSmem;
+  const size_t smem = bulk ? bulk_smem : kHead + 4 * (size_t)dp;
   const int blk = dp / nb;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(B), block(kWarps * 32);
+  const dim3 grid(B), block(kThreads);
   const int* i = (const int*)ids;
   const int8_t* c = (const int8_t*)codes;
   const float* sc = (const float*)scale;
@@ -258,12 +605,18 @@ extern "C" int gather_rows_dist_q8(const void* ids, const void* codes,
   const float* iv = (const float*)inv;
   float* o = (float*)out;
   cudaError_t e;
-  if (inv == nullptr) {
-    if ((e = allow_smem(rows_q8_kernel<false>, smem))) return e;
-    rows_q8_kernel<false><<<grid, block, smem, s>>>(i, c, sc, zr, qq, iv, o, R, N, dp, nb, blk);
+  if (bulk && inv == nullptr) {
+    if ((e = allow_smem(rows_q8_bulk<false>, smem))) return e;
+    rows_q8_bulk<false><<<grid, block, smem, s>>>(i, c, sc, zr, qq, iv, o, R, N, dp, nb, blk, S / 2);
+  } else if (bulk) {
+    if ((e = allow_smem(rows_q8_bulk<true>, smem))) return e;
+    rows_q8_bulk<true><<<grid, block, smem, s>>>(i, c, sc, zr, qq, iv, o, R, N, dp, nb, blk, S / 2);
+  } else if (inv == nullptr) {
+    if ((e = allow_smem(rows_q8_regs<false>, smem))) return e;
+    rows_q8_regs<false><<<grid, block, smem, s>>>(i, c, sc, zr, qq, iv, o, R, N, dp, nb, blk);
   } else {
-    if ((e = allow_smem(rows_q8_kernel<true>, smem))) return e;
-    rows_q8_kernel<true><<<grid, block, smem, s>>>(i, c, sc, zr, qq, iv, o, R, N, dp, nb, blk);
+    if ((e = allow_smem(rows_q8_regs<true>, smem))) return e;
+    rows_q8_regs<true><<<grid, block, smem, s>>>(i, c, sc, zr, qq, iv, o, R, N, dp, nb, blk);
   }
   return (int)cudaGetLastError();
 }

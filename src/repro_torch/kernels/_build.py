@@ -82,19 +82,24 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 def load(name: str, functions: Dict[str, list]) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; ``functions`` maps each
-    exported C function to its ``argtypes``.  Every function returns the
-    ``cudaError_t`` of its launch as an int."""
+    exported C function to its ``argtypes``."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in functions.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        lib = _libs[name] = bind(_target(name), functions)
+    return lib
+
+
+def bind(path, functions: Dict[str, list]) -> ctypes.CDLL:
+    """Load a built library and declare each of ``functions``' ``argtypes``.
+    Every function returns the ``cudaError_t`` of its launch as an int."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in functions.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 

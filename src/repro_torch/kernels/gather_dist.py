@@ -2,10 +2,15 @@
 
 Replace ``repro.kernels.gather_dist.gather_rows_dist`` and
 ``gather_rows_dist_q8`` (Pallas, one query per call, ids as scalar
-prefetch).  Here one call serves the whole batch: ids (B, R).  The legacy
-``gather_dist`` takes rows the caller already gathered, (B, R, d).  The CUDA
-source is ``csrc/gather_dist.cu``; its header says what bounds the kernels
-on an H100 (device-memory bytes) and what the design does about it.
+prefetch).  Here one call serves the whole batch: ids (B, R), R the
+index's padded degree, most slots -1.  The legacy ``gather_dist`` takes rows
+the caller already gathered, (B, R, d).  The CUDA source is
+``csrc/gather_dist.cu``; its header says what bounds the kernels on an H100
+(device-memory bytes) and what the design does about it: one coalesced pass
+over a query's ids that writes the invalid slots and compacts the valid
+ones, then the valid rows by bulk async copy into shared memory (rows of a
+multiple of 16 bytes on 16-byte aligned bases), or through registers for
+any other width.
 
 On CPU tensors, or with ``interpret=True``, the wrappers run the plain
 versions in ``kernels.ref``; on CUDA tensors they launch the kernels.
@@ -24,8 +29,10 @@ _FUNCTIONS = {
     "gather_rows_dist_q8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P],
     "gather_dist_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
-# the query row is staged in shared memory: at most 227 KB per block
-_MAX_WIDTH = 232448 // 4
+# the query row is staged in shared memory beside the hop kernels' 5,168-byte
+# head of barriers, (slot, id) pairs and per-row scalars: at most 227 KB a
+# block
+_MAX_WIDTH = (232448 - 5168) // 4
 
 
 def _lib():

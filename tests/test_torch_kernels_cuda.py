@@ -6,8 +6,8 @@ nvcc for sm_90a and have no CPU mode).  Imports neither ``jax`` nor
 
     python -m pytest -q tests/test_torch_kernels_cuda.py
 
-Tolerances: invalid slots exactly 3.4e38; valid values within rtol=1e-5,
-atol=1e-5 (the kernels split each sum over 32 lanes and use FMAs).  K4
+Tolerances: invalid slots exactly 3.4e38, ids >= N NaN; valid values within
+rtol=1e-5, atol=1e-5 (the kernels split each sum over 32 lanes).  K4
 ``topk_min``: indices and values equal.  K5 ``l2dist`` and K6 ``gather_dist``
 (dot form against the plain difference form): rtol=2e-5, atol=2e-4 in fp32,
 1e-2 from bf16, as tests/test_kernels.py holds the TPU kernels.
@@ -28,24 +28,47 @@ from repro_torch.quant import quantize_db
 INF32 = np.float32(3.4e38)
 
 
-def _inputs(B, R, d, n=64, seed=0):
+def _hop_ids(rng, B, R, n, case):
+    """(B, R) ids into n rows.  "mixed": a third and ~20% more -1; "hop":
+    the search's shape, ~85% -1, every 4th row -1 throughout and every 7th
+    (from row 1) valid throughout; "full": every id valid; "oob": "hop"
+    with ~5% of ids >= n (the kernels write NaN there)."""
+    ids = rng.integers(0, n, (B, R)).astype(np.int32)
+    if case == "mixed":
+        ids[:, ::3] = -1
+        ids[rng.random((B, R)) < 0.2] = -1
+    elif case in ("hop", "oob", "misaligned"):
+        ids[rng.random((B, R)) < 0.85] = -1
+        ids[::4] = -1
+        ids[1::7] = rng.integers(0, n, ids[1::7].shape)
+        if case == "oob":
+            oob = rng.random((B, R)) < 0.05
+            ids[oob] = n + rng.integers(0, 5, int(oob.sum()))
+    return ids
+
+
+def _inputs(B, R, d, n=64, seed=0, case="mixed"):
     rng = np.random.default_rng(seed)
     db = rng.standard_normal((n, d)).astype(np.float32)
     q = rng.standard_normal((B, d)).astype(np.float32)
-    ids = rng.integers(0, n, (B, R)).astype(np.int32)
-    ids[:, ::3] = -1
-    ids[rng.random((B, R)) < 0.2] = -1
+    ids = _hop_ids(rng, B, R, n, case)
     inv = (1.0 / np.maximum(np.linalg.norm(db, axis=1), 1e-9)).astype(np.float32)
     qn = (q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-9)
           ).astype(np.float32)
     return db, q, qn, ids, inv
 
 
-def _assert_masked(got, want, ids, rtol, atol):
+def _assert_masked(got, want, ids, rtol, atol, n=None):
+    """Invalid slots exactly 3.4e38; ids >= n (when given) NaN in ``got``;
+    the rest within tolerance.  ``want`` comes from ids with the ids >= n
+    set to -1 (the plain version would index out of bounds)."""
     got, want = np.asarray(got), np.asarray(want)
     bad = ids < 0
     assert np.all(got[bad] == INF32) and np.all(want[bad] == INF32)
-    np.testing.assert_allclose(got[~bad], want[~bad], rtol=rtol, atol=atol)
+    oob = ids >= n if n is not None else np.zeros_like(bad)
+    assert np.all(np.isnan(got[oob]))
+    ok = ~bad & ~oob
+    np.testing.assert_allclose(got[ok], want[ok], rtol=rtol, atol=atol)
 
 
 @pytest.fixture
@@ -60,34 +83,76 @@ def _on(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
+def _misaligned(t, offset_elems):
+    """The same values in a contiguous view whose base is ``offset_elems``
+    elements past an allocation (not 16-byte aligned)."""
+    flat = torch.empty(t.numel() + offset_elems, dtype=t.dtype, device=t.device)
+    view = flat[offset_elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# width 247 is the padded degree of the repaired 1M index the search runs
+# on; "hop" rows are mostly -1, some -1 throughout, some valid throughout
+# (more valid rows than one ring stage holds); R = 300 takes two passes of
+# the front; d = 3, 37, 130 and a misaligned db take the register path
+HOP_CASES = [(40, 1, 3, "mixed"), (40, 9, 37, "mixed"), (40, 32, 128, "mixed"),
+             (40, 11, 130, "mixed"), (64, 247, 128, "hop"), (1, 247, 128, "full"),
+             (1, 247, 128, "hop"), (10000, 247, 128, "hop"), (33, 247, 128, "oob"),
+             (9, 300, 128, "hop"), (40, 247, 128, "misaligned"), (40, 247, 3, "hop"),
+             (40, 247, 37, "hop"), (40, 247, 130, "oob"), (5, 247, 960, "hop")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,d", [(1, 3), (9, 37), (32, 128), (11, 130)])
-def test_gather_rows_dist_kernel_matches_plain(cuda, R, d):
-    db, q, qn, ids, inv = _inputs(40, R, d, n=500, seed=R * d)
-    idt, dbt, qt, qnt, invt = _on(cuda, ids, db, q, qn, inv)
+@pytest.mark.parametrize("B,R,d,case", HOP_CASES)
+def test_gather_rows_dist_kernel_matches_plain(cuda, B, R, d, case):
+    n = 500
+    db, q, qn, ids, inv = _inputs(B, R, d, n=n, seed=R * d + B, case=case)
+    idt, safe, dbt, qt, qnt, invt = _on(cuda, ids, np.where(ids >= n, -1, ids),
+                                        db, q, qn, inv)
+    if case == "misaligned":
+        dbt = _misaligned(dbt, 1)
     before = launch_counts()["gather_rows_dist"]
     for qq, iv in ((qt, None), (qnt, invt)):
         got = gather_rows_dist(idt, dbt, qq, iv)
         torch.cuda.synchronize()
-        want = ref.gather_rows_dist_ref(idt, dbt, qq, iv)
-        _assert_masked(got.cpu(), want.cpu(), ids, 1e-5, 1e-5)
+        want = ref.gather_rows_dist_ref(safe, dbt, qq, iv)
+        _assert_masked(got.cpu(), want.cpu(), ids, 1e-5, 1e-5, n)
     assert launch_counts()["gather_rows_dist"] == before + 2
 
 
+# block 12 at d = 30 (Dp = 36) and block 20 at d = 100 (Dp = 100) are not
+# multiples of 16 bytes: the register path; block 64 at d = 200 takes the
+# bulk path with four (scale, zero) blocks a row
+Q8_CASES = [(40, 1, 3, 128, "mixed"), (40, 9, 37, 128, "mixed"),
+            (40, 32, 128, 128, "mixed"), (40, 11, 200, 128, "mixed"),
+            (64, 247, 128, 128, "hop"), (1, 247, 128, 128, "full"),
+            (10000, 247, 128, 128, "hop"), (33, 247, 128, 128, "oob"),
+            (9, 300, 128, 128, "hop"), (40, 247, 128, 128, "misaligned"),
+            (40, 247, 30, 12, "hop"), (40, 247, 100, 20, "oob"),
+            (40, 247, 200, 64, "hop")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,d", [(1, 3), (9, 37), (32, 128), (11, 200)])
-def test_gather_rows_dist_q8_kernel_matches_plain(cuda, R, d):
-    db, q, qn, ids, _ = _inputs(40, R, d, n=500, seed=R * d + 1)
-    qdb = quantize_db(db)
+@pytest.mark.parametrize("B,R,d,block,case", Q8_CASES)
+def test_gather_rows_dist_q8_kernel_matches_plain(cuda, B, R, d, block, case):
+    n = 500
+    db, q, qn, ids, _ = _inputs(B, R, d, n=n, seed=R * d + B + 1, case=case)
+    qdb = quantize_db(db, block=block)
     dp = qdb.codes.shape[1]
     pad = lambda x: np.pad(x, ((0, 0), (0, dp - d)))  # noqa: E731
-    idt, codes, scale, zero, qt, qnt, inv = _on(
-        cuda, ids, qdb.codes, qdb.scale, qdb.zero, pad(q), pad(qn), qdb.inv_norms)
+    idt, safe, codes, scale, zero, qt, qnt, inv = _on(
+        cuda, ids, np.where(ids >= n, -1, ids), qdb.codes, qdb.scale, qdb.zero,
+        pad(q), pad(qn), qdb.inv_norms)
+    if case == "misaligned":
+        codes = _misaligned(codes, 4)
+    before = launch_counts()["gather_rows_dist_q8"]
     for qq, iv in ((qt, None), (qnt, inv)):
         got = gather_rows_dist_q8(idt, codes, scale, zero, qq, iv)
         torch.cuda.synchronize()
-        want = ref.gather_rows_dist_q8_ref(idt, codes, scale, zero, qq, iv)
-        _assert_masked(got.cpu(), want.cpu(), ids, 1e-5, 1e-5)
+        want = ref.gather_rows_dist_q8_ref(safe, codes, scale, zero, qq, iv)
+        _assert_masked(got.cpu(), want.cpu(), ids, 1e-5, 1e-5, n)
+    assert launch_counts()["gather_rows_dist_q8"] == before + 2
 
 
 @pytest.mark.cuda
