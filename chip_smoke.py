@@ -4,20 +4,28 @@
 Run from the root of a checkout:
     python3 chip_smoke.py  [--n N] [--queries Q] [--out FILE]
                            [--hop-baseline OTHER/gather_dist.cu]
+                           [--kernel-baseline OTHER_CSRC_DIR]
 
 1. Print the card and its power limit; build the CUDA kernels from
    src/repro_torch/csrc with nvcc (all sources in parallel).
 2. Kernel phase: every kernel of the search path against its plain PyTorch
    version on the card, at the search path's shapes (K1/K2: 1024 queries x
-   32 ids into the N x 128 database, ~10% invalid ids, both metrics; K3: Q
-   queries x 64 hubs x 128 dims), and timed beside its bound.
+   32 ids into the N x 128 database, ~10% invalid ids, both metrics; K3 at
+   the search's Q queries and a serve request's 1024, x 64 hubs x 128 dims,
+   its launch plan held against the wrapper's ``plan``), and timed beside
+   its bound.
 3. Kernel API path (``repro_torch.kernels.ops``), at the full-mode shapes of
    benchmarks/bench_kernels.py: K5 l2dist 1024 x 8192 x 128, K4 topk_min
    256 x 1024 (k = 32), K6 gather_dist 1024 x 32 x 128 (~10% ids -1), then
    topk_min(l2dist(1024 queries, the first 65,536 db rows), 10) against
-   exact_knn, and again on the last 1024 queries and 65,536 rows.  Driven
-   once with the launch counts at 0, then each kernel held against its
-   plain version and timed beside its bound.
+   exact_knn, and again on the last 1024 queries and 65,536 rows; K5 and
+   K4 also timed alone at that shape.  Driven once with the launch counts
+   at 0, then each kernel held against its plain version and timed beside
+   its bound and the nearest PyTorch call.  With --kernel-baseline, K3 and
+   K5 of another source (e.g. the parent commit's) are built beside the
+   port's, timed on the same inputs in turns, and must give the same bits
+   (K5 in fp32 and from bf16); the fused l2 search is run again on that K3
+   and must return the same ids.
 4. Build a GATE index over a synthetic SIFT-shaped database (N x 128,
    default N = 1,000,000) with the default GateConfig, on the card.
 5. Search Q held-out queries (default 10,000), k = 10: GATE with the
@@ -44,10 +52,11 @@ Phases 3, 5-6 and 8 are each driven with the kernel launch counts set to 0
 just before and read just after: K4-K6 must launch in phase 3, K1-K3 in
 phases 5-6 and K1/K3 in phase 8.  Every check that fails raises, so the
 script exits non-zero and prints no result.  The last line is the JSON
-result object; the line before it lists every kernel (K1 and K2 at the
-hop phase's 10,000-query calls).  ``--out FILE`` also
-writes the full record there as JSON.  Exits non-zero without a CUDA card
-or outside a checkout.
+result object; the line before it is the card's name and power limit, and
+the one before that lists every kernel (K1 and K2 at the hop phase's
+10,000-query calls, K3 at both of its shapes, K4 and K5 at both of
+theirs).  ``--out FILE`` also writes the full record there as JSON.  Exits
+non-zero without a CUDA card or outside a checkout.
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -69,6 +79,14 @@ ROOT = Path(__file__).resolve().parent
 # throughput outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+
+# shapes: a serve request's batch (K3), and the kernel API path's
+# (benchmarks/bench_kernels.py's full mode, then one exact top-k)
+SERVE_BATCH = 1024
+L2_SHAPE = (1024, 8192, 128)         # K5: Q, C, d
+TOPK_SHAPE = (256, 1024, 32)         # K4: B, C, k
+GATHER_SHAPE = (1024, 32, 128)       # K6: B, R, d
+COMPOSED_SHAPE = (1024, 65536, 10)   # topk_min(l2dist): queries, db rows, k
 
 
 def require(cond: bool, msg: str) -> None:
@@ -127,11 +145,12 @@ def hold(torch, np, name, got, want, ids) -> float:
     return float((got[~bad] - want[~bad]).abs().max()) if bool((~bad).any()) else 0.0
 
 
-def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64) -> dict:
-    """Each kernel against its plain version on the card; times and bounds."""
-    from repro_torch.kernels import (
-        gather_rows_dist, gather_rows_dist_q8, ref, twotower_score,
-    )
+def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64, n_sm: int = 132,
+                 baseline=None) -> dict:
+    """Each kernel of the search path against its plain version on the
+    card; times and bounds.  K3 at the search's and a serve request's
+    shapes, planned for ``n_sm`` SMs; ``baseline`` as ``twotower_record``."""
+    from repro_torch.kernels import gather_rows_dist, gather_rows_dist_q8, ref
     from repro_torch.quant import quantize_db
 
     N, d = db.shape
@@ -175,44 +194,131 @@ def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64) -> dict:
             rec[metric] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
         out[name] = rec
 
-    # query latents and hub reps stand in at the main path's (Q, 128) x (64, 128)
+    # K3 at the two shapes the main path launches it at: the search's
+    # (Q, 64, 128) and a serve request's (1024, 64, 128); query latents and
+    # hub reps stand in for the towers' outputs
+    TT = importlib.import_module("repro_torch.kernels.twotower_score")
     zq = torch.as_tensor(np.ascontiguousarray(queries[:, :d]), device=dev)
     hubs = torch.as_tensor(db[rng.choice(N, n_hubs, replace=False)], device=dev)
-    got = twotower_score(zq, hubs)
-    want = ref.twotower_score_ref(zq, hubs)
-    torch.cuda.synchronize()
-    require(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)),
-            "twotower_score: kernel disagrees with its plain version")
-    err = float((got - want).abs().max())
-    Bq = zq.shape[0]
-    cos_lib = torch.nn.functional.cosine_similarity
-    out["twotower_score"] = {"score": {
-        "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda i: twotower_score(zq, hubs)),
-        "plain_ms": cuda_ms(torch, lambda i: ref.twotower_score_ref(zq, hubs)),
-        "library_ms": cuda_ms(
-            torch, lambda i: cos_lib(zq[:, None, :], hubs[None, :, :], dim=-1)),
-        **bound((Bq * d + n_hubs * d + Bq * n_hubs) * 4,
-                2 * Bq * n_hubs * d + 2 * (Bq + n_hubs) * d),
-    }}
+    out["twotower_score"] = {
+        path: twotower_record(torch, TT, ref, q_lat, hubs, n_sm, baseline)
+        for path, q_lat in (("search", zq), ("serve", zq[:SERVE_BATCH]))}
     return out
 
 
-def api_phase(torch, np, db, queries, dev, reps: int = 30) -> dict:
+def pair_ms(torch, fn, other, reps: int = 30):
+    """Median device times of ``fn`` and ``other`` timed in turns (fn,
+    other, other, fn), each the mean of its two medians."""
+    a1, b1 = cuda_ms(torch, fn, reps), cuda_ms(torch, other, reps)
+    b2, a2 = cuda_ms(torch, other, reps), cuda_ms(torch, fn, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def hold_baseline(torch, name, got, other) -> float:
+    """A kernel's output against the baseline source's on the same inputs:
+    the same bits, or the run fails."""
+    torch.cuda.synchronize()
+    require(got.shape == other.shape and bool(torch.equal(got, other)),
+            f"{name}: kernel is not bit-equal to the baseline source's")
+    return float((got - other).abs().max()) if got.numel() else 0.0
+
+
+def twotower_record(torch, TT, ref, zq, hubs, n_sm: int, baseline=None) -> dict:
+    """K3 on (B, d) x (H, d): its launch plan (the source's, held against
+    ``TT.plan``), its output against the plain version (rtol = atol = 1e-5),
+    its time beside its bound, the plain version's and
+    ``F.cosine_similarity``'s; with ``baseline`` (libraries from
+    ``load_baseline``), the baseline source's time and its bits."""
+    B, d = zq.shape
+    H = hubs.shape[0]
+    want_plan = TT.plan(B, H, d, n_sm=n_sm, aligned=zq.data_ptr() % 16 == 0
+                        and hubs.data_ptr() % 16 == 0)
+    got_plan = TT.cuda_plan(zq, hubs)
+    require(got_plan == want_plan,
+            f"twotower_score plan {got_plan} differs from plan() {want_plan}")
+    got = TT.twotower_score(zq, hubs)
+    want = ref.twotower_score_ref(zq, hubs)
+    torch.cuda.synchronize()
+    require(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)),
+            f"twotower_score {B}x{H}x{d}: kernel disagrees with its plain version")
+    cos_lib = torch.nn.functional.cosine_similarity
+    rec = {
+        "shape": [B, H, d], "plan": got_plan,
+        "max_abs_err": float((got - want).abs().max()),
+        "plain_ms": cuda_ms(torch, lambda i: ref.twotower_score_ref(zq, hubs)),
+        "library_ms": cuda_ms(
+            torch, lambda i: cos_lib(zq[:, None, :], hubs[None, :, :], dim=-1)),
+        **bound((B * d + H * d + B * H) * 4, 2 * B * H * d + 2 * (B + H) * d),
+    }
+    if baseline is None:
+        rec["ms"] = cuda_ms(torch, lambda i: TT.twotower_score(zq, hubs))
+        return rec
+    run = baseline_kernel(baseline["twotower_score"], TT, "twotower_score")
+    rec["baseline_max_abs_err"] = hold_baseline(
+        torch, f"twotower_score {B}x{H}x{d}", got, run(zq, hubs))
+    rec["ms"], rec["baseline_ms"] = pair_ms(
+        torch, lambda i: TT.twotower_score(zq, hubs), lambda i: run(zq, hubs))
+    return rec
+
+
+def l2_record(torch, L2, ref, q, c_of, reps: int, baseline=None) -> dict:
+    """K5 on q (Q, d) against candidate sets ``c_of(i)`` (C, d), one per
+    timed call: its plan (held against ``L2.plan``), ``c_of(0)``'s output
+    against the plain version (rtol 2e-5, atol 2e-4), its time beside its
+    bound, the plain version's and ``torch.cdist``'s; with ``baseline``,
+    the baseline source's time, and its bits in fp32 and from bf16."""
+    c = c_of(0)
+    (Q, D), C = q.shape, c.shape[0]
+    got_plan = L2.cuda_plan(q, c)
+    want_plan = L2.plan(Q, C, D, aligned=q.data_ptr() % 16 == 0
+                        and c.data_ptr() % 16 == 0)
+    require(got_plan == want_plan,
+            f"l2dist plan {got_plan} differs from plan() {want_plan}")
+    got = L2.l2dist(q, c)
+    want = ref.l2dist_ref(q, c)
+    require(bool(torch.allclose(got, want, rtol=2e-5, atol=2e-4)),
+            f"l2dist {Q}x{C}x{D}: kernel disagrees with its plain version")
+    rec = {
+        "shape": [Q, C, D], "plan": got_plan,
+        "max_abs_err": float((got - want).abs().max()),
+        "plain_ms": cuda_ms(torch, lambda i: ref.l2dist_ref(q, c_of(i)), reps),
+        "library_ms": cuda_ms(torch, lambda i: torch.cdist(q, c_of(i)), reps),
+        **bound((Q * D + C * D + Q * C) * 4,
+                2 * Q * C * D + 2 * (Q + C) * D + 3 * Q * C),
+        "library_call": "torch.cdist (returns the root, not its square)",
+    }
+    del want
+    if baseline is None:
+        rec["ms"] = cuda_ms(torch, lambda i: L2.l2dist(q, c_of(i)), reps)
+        return rec
+    run = baseline_kernel(baseline["l2dist"], L2, "l2dist")
+    err = hold_baseline(torch, f"l2dist {Q}x{C}x{D}", got, run(q, c))
+    del got
+    qb, cb = q.to(torch.bfloat16), c.to(torch.bfloat16)
+    rec["baseline_max_abs_err"] = max(err, hold_baseline(
+        torch, f"l2dist {Q}x{C}x{D} bf16", L2.l2dist(qb, cb), run(qb, cb)))
+    rec["ms"], rec["baseline_ms"] = pair_ms(
+        torch, lambda i: L2.l2dist(q, c_of(i)), lambda i: run(q, c_of(i)), reps)
+    return rec
+
+
+def api_phase(torch, np, db, queries, dev, reps: int = 30, baseline=None) -> dict:
     """The kernel API path: K5 l2dist, K4 topk_min and K6 gather_dist
     through ``ops`` at bench_kernels.py's full-mode shapes, and one composed
-    exact top-10 over the first 65,536 db rows.  The path is driven once
-    with the launch counts at 0 (``launches``); the checks and timings
-    after it are not counted."""
+    exact top-10 over the first 65,536 db rows, where K5 and K4 are also
+    timed alone.  The path is driven once with the launch counts at 0
+    (``launches``); the checks and timings after it are not counted.
+    ``baseline`` as ``l2_record``."""
     from repro_torch import exact_knn
     from repro_torch import kernels as K
     from repro_torch.kernels import ops, ref
 
+    L2 = importlib.import_module("repro_torch.kernels.l2dist")
     rng = np.random.default_rng(12)
-    Q, C, D = 1024, 8192, 128
-    B, Ck, k = 256, 1024, 32
-    Bg, Rg = 1024, 32
-    Nc, Qc, kc = 65536, 1024, 10
+    Q, C, D = L2_SHAPE
+    B, Ck, k = TOPK_SHAPE
+    Bg, Rg, Dg = GATHER_SHAPE
+    Qc, Nc, kc = COMPOSED_SHAPE
 
     def dev_t(a):
         return torch.as_tensor(a, device=dev)
@@ -221,8 +327,8 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30) -> dict:
     lq = dev_t(rng.standard_normal((Q, D), dtype=np.float32))
     lc = dev_t(rng.standard_normal((reps + 3, C, D), dtype=np.float32))
     td = dev_t(rng.standard_normal((reps + 3, B, Ck), dtype=np.float32))
-    gv = dev_t(rng.standard_normal((reps + 3, Bg, Rg, D), dtype=np.float32))
-    gq = dev_t(rng.standard_normal((Bg, D), dtype=np.float32))
+    gv = dev_t(rng.standard_normal((reps + 3, Bg, Rg, Dg), dtype=np.float32))
+    gq = dev_t(rng.standard_normal((Bg, Dg), dtype=np.float32))
     ids_np = rng.integers(0, 1 << 20, (reps + 3, Bg, Rg)).astype(np.int32)
     ids_np[rng.random(ids_np.shape) < 0.1] = -1
     gi = dev_t(ids_np)
@@ -244,19 +350,12 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30) -> dict:
                 "plain_ms": cuda_ms(torch, plain, reps),
                 "library_ms": cuda_ms(torch, library, reps) if library else None}
 
-    # K5 l2dist: fp32 against the plain version, rtol 2e-5 atol 2e-4
-    want = ref.l2dist_ref(lq, lc[0])
-    require(bool(torch.allclose(out_l2, want, rtol=2e-5, atol=2e-4)),
-            "l2dist: kernel disagrees with its plain version")
-    out["l2dist"] = {
-        "shape": [Q, C, D], "max_abs_err": float((out_l2 - want).abs().max()),
-        **time3(lambda i: ops.l2dist(lq, lc[i]),
-                lambda i: ref.l2dist_ref(lq, lc[i]),
-                lambda i: torch.cdist(lq, lc[i])),
-        **bound((Q * D + C * D + Q * C) * 4,
-                2 * Q * C * D + 2 * (Q + C) * D + 3 * Q * C),
-        "library_call": "torch.cdist (returns the root, not its square)",
-    }
+    # K5 l2dist: the counted output has the bits of the one l2_record holds
+    require(bool(torch.equal(out_l2, L2.l2dist(lq, lc[0]))),
+            "l2dist: two launches on the same inputs differ")
+    del out_l2
+    out["l2dist"] = l2_record(torch, L2, ref, lq, lambda i: lc[i], reps,
+                              baseline)
     # K4 topk_min: values and indices equal to the stable sort
     ve, ie = ref.topk_min_ref(td[0], k)
     require(bool(torch.equal(out_tk[1], ie)) and bool(torch.equal(out_tk[0], ve)),
@@ -279,12 +378,12 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30) -> dict:
             "gather_dist: kernel disagrees with its plain version")
     n_valid = float((gi[:reps] >= 0).sum()) / reps
     out["gather_dist"] = {
-        "shape": [Bg, Rg, D],
+        "shape": [Bg, Rg, Dg],
         "max_abs_err": float((out_gd[~bad] - want[~bad]).abs().max()),
         **time3(lambda i: ops.gather_dist(gv[i], gq, gi[i]),
                 lambda i: ref.gather_dist_ref(gv[i], gq, gi[i]),
                 lambda i: torch.cdist(gv[i], gq[:, None, :])),
-        **bound(n_valid * D * 4 + Bg * D * 4 + Bg * Rg * 8, n_valid * D * 6),
+        **bound(n_valid * Dg * 4 + Bg * Dg * 4 + Bg * Rg * 8, n_valid * Dg * 6),
         "library_call": "torch.cdist of each (R, d) block to its query: the "
                         "nearest single call; it reads every row, masks "
                         "nothing and returns the root",
@@ -297,16 +396,22 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30) -> dict:
     comp_d = rec.pop("d")
     rec["ms"] = cuda_ms(
         torch, lambda i: ops.topk_min(ops.l2dist(cq, chunk), kc), 5)
+    # K4 alone at this shape, beside its bound and torch.topk
     rec["topk_ms"] = cuda_ms(torch, lambda i: ops.topk_min(comp_d, kc), 5)
     rec["topk_plain_ms"] = cuda_ms(
         torch, lambda i: ref.topk_min_ref(comp_d, kc), 5)
+    rec["topk_library_ms"] = cuda_ms(
+        torch, lambda i: torch.topk(comp_d, kc, dim=1, largest=False), 5)
+    rec["topk_bound"] = bound(Qc * Nc * 4 + Qc * kc * 8, Qc * Nc * kc)
     del comp_d
+    # K5 alone at this shape (the same rows every call: 32 MB, in L2)
+    rec["l2dist"] = l2_record(torch, L2, ref, cq, lambda i: chunk, 10, baseline)
     second = composed_check(
         torch, ops, ref, exact_knn,
         dev_t(np.ascontiguousarray(queries[len(queries) - Qc:])),
         dev_t(np.ascontiguousarray(db[len(db) - Nc:])), kc)
     del second["d"]
-    out["composed_top10"] = {"shape": [Qc, Nc, D, kc], **rec,
+    out["composed_top10"] = {"shape": [Qc, Nc, cq.shape[1], kc], **rec,
                              "second_set": second}
     return out
 
@@ -478,33 +583,45 @@ def _spread(xs) -> dict:
             "min": min(xs), "max": max(xs)} if xs else {}
 
 
-def load_hop_baseline(path: Path):
-    """Build another ``gather_dist.cu`` (e.g. the parent commit's) with the
-    port's nvcc flags and load it; returns ``(lib, ptxas log)``."""
+def load_baseline(path: Path, functions: dict):
+    """Build another source (e.g. the parent commit's) with the port's nvcc
+    flags into the build directory and bind ``functions`` (the launch
+    entry points it shares with the port's); returns ``(lib, ptxas log)``."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.gather_dist import _FUNCTIONS
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "hop_baseline.so"
+    out = _build.BUILD_DIR / f"baseline-{path.stem}.so"
     p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                         str(path)], capture_output=True, text=True)
-    require(p.returncode == 0, f"hop baseline build failed:\n{p.stdout}{p.stderr}")
-    return _build.bind(out, _FUNCTIONS), p.stdout + p.stderr
+    require(p.returncode == 0, f"baseline {path} build failed:\n{p.stdout}{p.stderr}")
+    return _build.bind(out, functions), p.stdout + p.stderr
 
 
-def baseline_hop(lib, name: str):
-    """The port's wrapper ``name``, launching the baseline library's kernel
-    instead of its own (same checks and arguments)."""
-    G = importlib.import_module("repro_torch.kernels.gather_dist")
-    fn = getattr(G, name)
+@contextlib.contextmanager
+def kernel_library(module, lib):
+    """Inside the block, ``module``'s wrappers launch ``lib``'s kernels
+    (same checks and arguments) instead of the port's."""
+    own, module._lib = module._lib, lambda: lib
+    try:
+        yield
+    finally:
+        module._lib = own
 
-    def run(ids, *args):
-        own, G._lib = G._lib, lambda: lib
-        try:
-            return fn(ids, *args)
-        finally:
-            G._lib = own
+
+def baseline_kernel(lib, module, name: str):
+    """The port's wrapper ``module.<name>``, launching ``lib``'s kernel."""
+    fn = getattr(module, name)
+
+    def run(*args):
+        with kernel_library(module, lib):
+            return fn(*args)
     return run
+
+
+def log_ptxas(tag: str, text: str) -> None:
+    for ln in text.splitlines():
+        if "registers" in ln or "spill" in ln:
+            log(f"  ptxas {tag}: {ln.strip()}")
 
 
 def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
@@ -519,7 +636,7 @@ def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
     each call replayed once under CUDA events (sum and median), the plain
     version timed on ``n_plain`` calls, and every ``check_every``-th call
     held against the plain version, l2 and cosine.  ``baseline`` is a
-    library from ``load_hop_baseline``, timed and held on the same calls."""
+    library from ``load_baseline``, timed and held on the same calls."""
     from repro_torch import SearchParams
     from repro_torch.graphs import search as S
     from repro_torch.kernels import gather_rows_dist, gather_rows_dist_q8, ref
@@ -565,7 +682,9 @@ def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
                   for i in hop]
         versions = [("kernel", kern)]
         if baseline is not None:
-            versions.append(("baseline", baseline_hop(baseline, name)))
+            versions.append(("baseline", baseline_kernel(
+                baseline, importlib.import_module(
+                    "repro_torch.kernels.gather_dist"), name)))
         errs = dict.fromkeys((v for v, _ in versions), 0.0)
         checked = hop[::check_every]
         for i in checked:
@@ -608,6 +727,23 @@ def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
              for k, v in rec.items() if k != "valid_slots"}))
         del calls
     return out
+
+
+def search_on_baseline_k3(torch, idx, eval_q, dev, lib) -> dict:
+    """The fused l2 search of the eval queries on the port's K3 and on
+    ``lib``'s (K3 picks every query's entry hub): the same ids, or the run
+    fails."""
+    from repro_torch import SearchParams
+
+    TT = importlib.import_module("repro_torch.kernels.twotower_score")
+    qd = torch.as_tensor(eval_q, device=dev)
+    sp = SearchParams(k=10, beam_width=64, max_hops=256, kernel="fused")
+    own = idx.search(qd, params=sp, telemetry_sink=None, device=dev).ids
+    with kernel_library(TT, lib):
+        other = idx.search(qd, params=sp, telemetry_sink=None, device=dev).ids
+    require(bool(torch.equal(own, other)),
+            "fused search ids differ on the baseline K3")
+    return {"fused_l2_ids_equal": True, "queries": len(qd)}
 
 
 def agreement(a, b) -> float:
@@ -781,6 +917,91 @@ def serve_phase(torch, np, idx, eval_q, dev, n_req: int = 16,
     return out
 
 
+CSRC = "src/repro_torch/csrc/"
+SOURCES = {"gather_rows_dist": CSRC + "gather_dist.cu",
+           "gather_rows_dist_q8": CSRC + "gather_dist.cu",
+           "twotower_score": CSRC + "twotower_score.cu",
+           "topk_min": CSRC + "topk.cu", "l2dist": CSRC + "l2dist.cu",
+           "gather_dist": CSRC + "gather_dist.cu"}
+REPLACES = {"gather_rows_dist": "src/repro/kernels/gather_dist.py:129",
+            "gather_rows_dist_q8": "src/repro/kernels/gather_dist.py:205",
+            "twotower_score": "src/repro/kernels/twotower_score.py:40",
+            "topk_min": "src/repro/kernels/topk.py:40",
+            "l2dist": "src/repro/kernels/l2dist.py:49",
+            "gather_dist": "src/repro/kernels/gather_dist.py:59"}
+SHAPE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "max_abs_err", "baseline_ms", "baseline_max_abs_err", "plan")
+
+
+def _at_shape(rec: dict) -> dict:
+    return {k: rec[k] for k in SHAPE_KEYS if k in rec}
+
+
+def kernels_line(kres, api, hop, launches, serve_launches) -> list:
+    """One entry per kernel for the line before the last: K1 and K2 at the
+    10,000-query search's own calls (hop phase) with their fixed (1024, 32)
+    rows beside them; K3 at the search's shape with the serve request's
+    beside it; K4 and K5 at bench_kernels.py's shapes with the composed
+    top-10's beside them; K6 at bench_kernels.py's."""
+    hop_of = {"gather_rows_dist": "fused_l2", "gather_rows_dist_q8": "fused_q8_l2"}
+    comp = api["composed_top10"]
+    line = []
+    for name in SOURCES:
+        if name in hop_of:  # K1, K2: the search and serve paths
+            h = hop[hop_of[name]]
+            fixed = kres[name]
+            main_rec = {"ms": h["kernel"]["ms_median"],
+                        "plain_ms": h["plain_ms_median"],
+                        "bound_ms": h["bound_ms_median"],
+                        "bound_by": h["bound_by"]}
+            err = max([h["kernel"]["max_abs_err"]]
+                      + [v["max_abs_err"] for v in fixed.values()])
+            by_path = {"search": launches[name], "serve": serve_launches[name]}
+        elif name in kres:  # K3: the search and serve paths
+            main_rec = kres[name]["search"]
+            err = max(v["max_abs_err"] for v in kres[name].values())
+            by_path = {"search": launches[name], "serve": serve_launches[name]}
+        else:             # K4-K6: the kernel API path
+            main_rec = api[name]
+            err = main_rec["max_abs_err"]
+            by_path = {"api": api["launches"][name]}
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": err,
+            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec.get("library_ms"),
+        }
+        if name in hop_of:
+            entry["library_note"] = "no single PyTorch call gathers rows and scores them"
+            entry["shape"] = [h["B"], h["R"]]
+            entry["ms_per_search"] = h["kernel"]["ms_sum"]
+            entry["fixed_shape_1024x32"] = {
+                m: {k: fixed[m][k] for k in ("ms", "plain_ms", "bound_ms")}
+                for m in ("l2", "cosine")}
+            line.append(entry)
+            continue
+        entry.update(_at_shape(main_rec))
+        entry["max_abs_err"] = err
+        if name == "twotower_score":
+            entry["library_call"] = "torch.nn.functional.cosine_similarity"
+            entry["serve_shape"] = _at_shape(kres[name]["serve"])
+        else:
+            entry["library_call"] = main_rec["library_call"]
+        if name == "l2dist":
+            entry["composed_shape"] = _at_shape(comp["l2dist"])
+        elif name == "topk_min":
+            entry["composed_shape"] = {
+                "shape": [comp["shape"][0], comp["shape"][1], comp["shape"][3]],
+                "ms": comp["topk_ms"], "plain_ms": comp["topk_plain_ms"],
+                "library_ms": comp["topk_library_ms"],
+                "bound_ms": comp["topk_bound"]["bound_ms"],
+                "bound_by": comp["topk_bound"]["bound_by"]}
+        line.append(entry)
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="database rows")
@@ -792,6 +1013,12 @@ def main(argv=None) -> int:
                     help="another gather_dist.cu (e.g. the parent commit's): "
                          "its hop kernels are timed and held on the same "
                          "recorded calls as the port's")
+    ap.add_argument("--kernel-baseline", type=Path, default=None,
+                    help="a directory with another twotower_score.cu and "
+                         "l2dist.cu (e.g. the parent commit's csrc): K3 and "
+                         "K5 of both are timed on the same inputs, must give "
+                         "the same bits, and the fused search is run again "
+                         "on the baseline K3 and must return the same ids")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -827,9 +1054,22 @@ def main(argv=None) -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
         + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     for name, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        log_ptxas(name, text)
+    kbase = None
+    if args.kernel_baseline is not None:
+        kbase = {}
+        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+            jobs = {name: pool.submit(
+                load_baseline, args.kernel_baseline / f"{name}.cu",
+                importlib.import_module(f"repro_torch.kernels.{name}")._LAUNCH)
+                for name in ("twotower_score", "l2dist")}
+            for name, job in jobs.items():
+                kbase[name], blog = job.result()
+                log_ptxas(f"baseline {name}", blog)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the least a kernel reads under cuda_ms: an empty spin kernel's time
+    floor_ms = cuda_ms(torch, lambda i: torch.cuda._sleep(0))
+    log(f"timing floor (empty kernel, median of 30): {floor_ms * 1e3:.2f} us")
 
     # data
     t0 = time.perf_counter()
@@ -839,12 +1079,12 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     # 2. kernel phase
-    kres = kernel_phase(torch, np, db, eval_q, dev)
+    kres = kernel_phase(torch, np, db, eval_q, dev, n_sm=n_sm, baseline=kbase)
     for name, rec in kres.items():
         log(f"kernel {name}: " + json.dumps(rec))
 
     # 3. the kernel API path
-    api = api_phase(torch, np, db, eval_q, dev)
+    api = api_phase(torch, np, db, eval_q, dev, baseline=kbase)
     for name, rec in api.items():
         log(f"api {name}: " + json.dumps(rec))
     for name in ("topk_min", "l2dist", "gather_dist"):
@@ -907,13 +1147,19 @@ def main(argv=None) -> int:
             require(v["ids"].shape == (len(eval_q), 10)
                     and (v["ids"] >= 0).all(), "search returned invalid ids")
 
+    on_base = None
+    if kbase is not None:
+        on_base = search_on_baseline_k3(torch, idx, eval_q, dev,
+                                        kbase["twotower_score"])
+        log("search on the baseline K3: " + json.dumps(on_base))
+
     # 7b. the hop kernels at the calls the searches above really make
     baseline = None
     if args.hop_baseline is not None:
-        baseline, blog = load_hop_baseline(args.hop_baseline)
-        for ln in blog.splitlines():
-            if "registers" in ln or "spill" in ln:
-                log(f"  ptxas hop baseline: {ln.strip()}")
+        baseline, blog = load_baseline(
+            args.hop_baseline,
+            importlib.import_module("repro_torch.kernels.gather_dist")._FUNCTIONS)
+        log_ptxas("hop baseline", blog)
     hop = hop_phase(torch, np, idx, eval_q, dev, baseline)
 
     # 8. the serve path; its own counts (the two daemons' runs)
@@ -924,64 +1170,10 @@ def main(argv=None) -> int:
         require(serve_launches[name] > 0,
                 f"kernel {name} was not launched on the serve path")
 
-    csrc = "src/repro_torch/csrc/"
-    sources = {"gather_rows_dist": csrc + "gather_dist.cu",
-               "gather_rows_dist_q8": csrc + "gather_dist.cu",
-               "twotower_score": csrc + "twotower_score.cu",
-               "topk_min": csrc + "topk.cu", "l2dist": csrc + "l2dist.cu",
-               "gather_dist": csrc + "gather_dist.cu"}
-    replaces = {"gather_rows_dist": "src/repro/kernels/gather_dist.py:129",
-                "gather_rows_dist_q8": "src/repro/kernels/gather_dist.py:205",
-                "twotower_score": "src/repro/kernels/twotower_score.py:40",
-                "topk_min": "src/repro/kernels/topk.py:40",
-                "l2dist": "src/repro/kernels/l2dist.py:49",
-                "gather_dist": "src/repro/kernels/gather_dist.py:59"}
-    # K1 and K2 are reported at the 10,000-query search's own calls (hop
-    # phase); their fixed-shape (1024, 32) rows stay beside them
-    hop_of = {"gather_rows_dist": "fused_l2", "gather_rows_dist_q8": "fused_q8_l2"}
-    line = []
-    for name in sources:
-        if name in hop_of:  # K1, K2: the search and serve paths
-            h = hop[hop_of[name]]
-            fixed = kres[name]
-            main_rec = {"ms": h["kernel"]["ms_median"],
-                        "plain_ms": h["plain_ms_median"],
-                        "bound_ms": h["bound_ms_median"],
-                        "bound_by": h["bound_by"]}
-            err = max([h["kernel"]["max_abs_err"]]
-                      + [v["max_abs_err"] for v in fixed.values()])
-            by_path = {"search": launches[name], "serve": serve_launches[name]}
-        elif name in kres:  # K3: the search and serve paths
-            main_rec = kres[name]["score"]
-            err = main_rec["max_abs_err"]
-            by_path = {"search": launches[name], "serve": serve_launches[name]}
-        else:             # K4-K6: the kernel API path
-            main_rec = api[name]
-            err = main_rec["max_abs_err"]
-            by_path = {"api": api["launches"][name]}
-        entry = {
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": err,
-            "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-            "library_ms": main_rec.get("library_ms"),
-        }
-        if name == "twotower_score":
-            entry["library_call"] = "torch.nn.functional.cosine_similarity"
-        elif name in hop_of:
-            entry["library_note"] = "no single PyTorch call gathers rows and scores them"
-            entry["shape"] = [h["B"], h["R"]]
-            entry["ms_per_search"] = h["kernel"]["ms_sum"]
-            entry["fixed_shape_1024x32"] = {
-                m: {k: fixed[m][k] for k in ("ms", "plain_ms", "bound_ms")}
-                for m in ("l2", "cosine")}
-        else:
-            entry["library_call"] = main_rec["library_call"]
-        line.append(entry)
-
+    line = kernels_line(kres, api, hop, launches, serve_launches)
     record = {
         "card": smi, "n": args.n, "queries": args.queries,
+        "timing_floor_ms": floor_ms,
         "kernel_build_s": secs, "kernels": kres, "build_s": t_build,
         "build_report": rep, "memory_bytes": idx.memory_bytes(),
         "search_l2": {k: {kk: vv for kk, vv in v.items() if kk != "ids"}
@@ -991,7 +1183,7 @@ def main(argv=None) -> int:
         "agreement": {"l2": agree_l2, "cosine": agree_cos},
         "launches": launches, "profile_fused_l2": prof,
         "profile_fused_q8_l2": prof_q8, "hop": hop, "api": api,
-        "serve": serve,
+        "serve": serve, "search_on_baseline_k3": on_base,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -94,60 +96,6 @@ __device__ __forceinline__ float dq(signed char c, float s, float z) {
 __device__ __forceinline__ void stage_query(float* qs, const float* q, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) qs[i] = q[i];
   __syncthreads();
-}
-
-// ---------------------------------------------------- mbarrier + bulk copy
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// The one arrival of a stage, with the bytes its copies will deliver.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Spin until the barrier's phase of this parity has completed.  A phase
-// that never completes (a copy that faulted) traps after ~2^26 polls, so
-// the launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// Order this thread's earlier generic-proxy reads of shared memory before
-// the async-proxy writes of the bulk copies it issues next (a ring slot is
-// refilled after it was read).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// Global -> shared bulk copy of `bytes` (a multiple of 16, both addresses
-// 16-byte aligned), completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // ------------------------------------------------------------- the front

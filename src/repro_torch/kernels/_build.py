@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  Libraries are
-keyed by a hash of the source and the flags and live under
+keyed by a hash of the source, of every ``csrc/*.cuh`` header it includes
+and of the flags, and live under
 ``build/repro_torch/`` at the root of the checkout, so a changed source is
 rebuilt and an unchanged one is reused.  Nothing is built at import time.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,8 +45,23 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_bytes(path: Path, _seen=None) -> bytes:
+    """The bytes of a source and of every header it includes with
+    ``#include "..."`` from its own directory, recursively, in order."""
+    seen = set() if _seen is None else _seen
+    if path in seen:
+        return b""
+    seen.add(path)
+    text = path.read_bytes()
+    return text + b"".join(source_bytes(path.parent / m.decode(), seen)
+                           for m in _INCLUDE.findall(text))
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = source_bytes(CSRC / f"{name}.cu")
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 

@@ -12,6 +12,7 @@ invalid slots, and values within 1e-5 (fp32 sums in another order), as
 tests/test_torch_kernels.py holds them.
 """
 import dataclasses
+import importlib
 import sys
 from pathlib import Path
 
@@ -167,3 +168,15 @@ def test_recorded_calls_match_pallas_row_by_row(index, kernel, name):
         bad = row_ids < 0
         assert np.all(got[b][bad] == INF32) and np.all(want[bad] == INF32)
         np.testing.assert_allclose(got[b][~bad], want[~bad], rtol=1e-5, atol=1e-5)
+
+
+def test_search_on_baseline_k3_rehearsal(index):
+    """``chip_smoke.search_on_baseline_k3`` runs the fused search twice, the
+    second time with K3's library swapped for a baseline one (never reached
+    on CPU tensors), and holds the ids equal; the swap is undone after."""
+    TT = importlib.import_module("repro_torch.kernels.twotower_score")
+    own = TT._lib
+    out = chip_smoke.search_on_baseline_k3(torch, index, _queries(index, 20),
+                                           "cpu", object())
+    assert out == {"fused_l2_ids_equal": True, "queries": 20}
+    assert TT._lib is own

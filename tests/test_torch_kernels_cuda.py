@@ -7,11 +7,15 @@ nvcc for sm_90a and have no CPU mode).  Imports neither ``jax`` nor
     python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: invalid slots exactly 3.4e38, ids >= N NaN; valid values within
-rtol=1e-5, atol=1e-5 (the kernels split each sum over 32 lanes).  K4
+rtol=1e-5, atol=1e-5 (the kernels split each sum over 32 lanes).  K3
+``twotower_score``: rtol=atol=1e-5; its two paths (and K5's) give the same
+bits, and each launch plan equals the wrapper module's ``plan``.  K4
 ``topk_min``: indices and values equal.  K5 ``l2dist`` and K6 ``gather_dist``
 (dot form against the plain difference form): rtol=2e-5, atol=2e-4 in fp32,
 1e-2 from bf16, as tests/test_kernels.py holds the TPU kernels.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -155,17 +159,59 @@ def test_gather_rows_dist_q8_kernel_matches_plain(cuda, B, R, d, block, case):
     assert launch_counts()["gather_rows_dist_q8"] == before + 2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,d", [(5, 3, 7), (1000, 64, 128), (129, 130, 33)])
-def test_twotower_score_kernel_matches_plain(cuda, B, H, d):
+# (10,000, 64, 128) and (1024, 64, 128) are the search's and a serve
+# request's shapes; up to 128 hubs of width up to 128 (multiples of 4) take
+# the resident path, the rest (H = 129, 130, 512; d = 7, 33, 512) the tiled
+# one; "row" is a view one row into its allocation (aligned), "elem" one
+# element in (misaligned: the tiled path)
+K3_CASES = [(5, 3, 7, None), (1000, 64, 128, None), (129, 130, 33, None),
+            (1, 64, 128, None), (1024, 64, 128, None), (10000, 64, 128, None),
+            (1024, 128, 128, None), (77, 12, 36, None), (1024, 129, 128, None),
+            (300, 512, 128, None), (1024, 64, 7, None), (1024, 64, 33, None),
+            (64, 64, 512, None), (1024, 64, 128, "row"), (1024, 64, 128, "elem"),
+            (33, 4, 8, None), (1000, 100, 64, None), (5000, 64, 128, None)]
+
+
+def _k3_inputs(cuda, B, H, d, view):
     rng = np.random.default_rng(B * H + d)
     q, h = _on(cuda, rng.standard_normal((B, d)).astype(np.float32),
                rng.standard_normal((H, d)).astype(np.float32))
+    if view is not None:
+        q = _misaligned(q, d if view == "row" else 1)
+    return q, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,d,view", K3_CASES)
+def test_twotower_score_kernel_matches_plain(cuda, B, H, d, view):
+    q, h = _k3_inputs(cuda, B, H, d, view)
+    TT = importlib.import_module("repro_torch.kernels.twotower_score")
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want_plan = TT.plan(B, H, d, n_sm=n_sm, aligned=view != "elem")
+    assert TT.cuda_plan(q, h) == want_plan
+    resident = H <= 128 and H % 4 == 0 and d <= 128 and d % 4 == 0
+    assert want_plan["path"] == ("resident" if resident and view != "elem"
+                                 else "tiled")
+    before = launch_counts()["twotower_score"]
     got = twotower_score(q, h)
     torch.cuda.synchronize()
+    assert launch_counts()["twotower_score"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(),
                                ref.twotower_score_ref(q, h).cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,d", [(1024, 64, 128), (10000, 64, 128),
+                                   (333, 128, 124), (40, 8, 4)])
+def test_twotower_score_paths_give_the_same_bits(cuda, B, H, d):
+    """The resident path and the tiled one (a misaligned view of the same
+    queries) round every output alike."""
+    q, h = _k3_inputs(cuda, B, H, d, None)
+    resident = twotower_score(q, h)
+    tiled = twotower_score(_misaligned(q, 1), h)
+    torch.cuda.synchronize()
+    assert torch.equal(resident, tiled)
 
 
 # ----------------------------------------------- K4 topk_min, K5 l2dist, K6
@@ -194,25 +240,54 @@ def test_topk_min_kernel_matches_plain(cuda, B, C, k):
     assert launch_counts()["topk_min"] == before + len(rows)
 
 
+# (1024, 8192) and (1024, 65,536) at d = 128 are the kernel API path's
+# shapes; Q and C off the 128 x 128 tile; d = 960; widths that are not a
+# multiple of 4 (fp32) or 8 (bf16) take the tiled path
+K5_CASES = [(1, 1, 1), (7, 13, 5), (17, 33, 40), (128, 256, 128),
+            (64, 200, 960), (130, 129, 127), (1024, 8192, 128),
+            (1024, 65536, 128), (300, 1000, 128), (129, 70000, 64),
+            (5, 3, 12)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q,C,D", [(1, 1, 1), (7, 13, 5), (17, 33, 40),
-                                   (128, 256, 128), (64, 200, 960),
-                                   (130, 129, 127), (1024, 8192, 128)])
+@pytest.mark.parametrize("Q,C,D", K5_CASES)
 def test_l2dist_kernel_matches_plain(cuda, Q, C, D):
     rng = np.random.default_rng(Q + C + D)
     q, c = _on(cuda, rng.standard_normal((Q, D)).astype(np.float32),
                rng.standard_normal((C, D)).astype(np.float32))
-    got = ops.l2dist(q, c, mode="cuda")
+    L2 = importlib.import_module("repro_torch.kernels.l2dist")
+    before = launch_counts()["l2dist"]
+    for qq, cc, tol, bf16 in ((q, c, (2e-5, 2e-4), False),
+                              (q.to(torch.bfloat16), c.to(torch.bfloat16),
+                               (1e-2, 1e-2), True)):
+        want_plan = L2.plan(Q, C, D, bf16=bf16)
+        assert L2.cuda_plan(qq, cc) == want_plan
+        assert want_plan["path"] == ("sgemm" if D % (8 if bf16 else 4) == 0
+                                     else "tiled")
+        got = ops.l2dist(qq, cc, mode="cuda")
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   ref.l2dist_ref(qq, cc).cpu().numpy(),
+                                   rtol=tol[0], atol=tol[1])
+        del got
+    assert launch_counts()["l2dist"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,C,D", [(1024, 8192, 128), (130, 300, 64),
+                                   (33, 65, 960)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2dist_paths_give_the_same_bits(cuda, Q, C, D, dtype):
+    """The SGEMM path and the tiled one (a misaligned view of the same
+    candidates) round every output alike."""
+    rng = np.random.default_rng(Q * C + D)
+    q, c = _on(cuda, rng.standard_normal((Q, D)).astype(np.float32),
+               rng.standard_normal((C, D)).astype(np.float32))
+    q, c = q.to(dtype), c.to(dtype)
+    sgemm = ops.l2dist(q, c, mode="cuda")
+    tiled = ops.l2dist(q, _misaligned(c, 1), mode="cuda")
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               ref.l2dist_ref(q, c).cpu().numpy(),
-                               rtol=2e-5, atol=2e-4)
-    qb, cb = q.to(torch.bfloat16), c.to(torch.bfloat16)
-    got = ops.l2dist(qb, cb, mode="cuda")
-    torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               ref.l2dist_ref(qb, cb).cpu().numpy(),
-                               rtol=1e-2, atol=1e-2)
+    assert torch.equal(sgemm, tiled)
 
 
 @pytest.mark.cuda
