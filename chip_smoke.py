@@ -19,13 +19,15 @@ Run from the root of a checkout:
    256 x 1024 (k = 32), K6 gather_dist 1024 x 32 x 128 (~10% ids -1), then
    topk_min(l2dist(1024 queries, the first 65,536 db rows), 10) against
    exact_knn, and again on the last 1024 queries and 65,536 rows; K5 and
-   K4 also timed alone at that shape.  Driven once with the launch counts
-   at 0, then each kernel held against its plain version and timed beside
-   its bound and the nearest PyTorch call.  With --kernel-baseline, K3 and
-   K5 of another source (e.g. the parent commit's) are built beside the
-   port's, timed on the same inputs in turns, and must give the same bits
-   (K5 in fp32 and from bf16); the fused l2 search is run again on that K3
-   and must return the same ids.
+   K4 also timed alone at that shape (K4's and K5's launch plans held
+   against the wrappers' ``plan``).  Driven once with the launch counts at
+   0, then each kernel held against its plain version and timed beside its
+   bound and the nearest PyTorch call; K4's and K6's times are also given
+   net of the timing floor.  With --kernel-baseline, K3, K4, K5 and K6 of
+   another source (e.g. the parent commit's) are built beside the port's,
+   timed on the same inputs in turns (K3 and K4 at both of their shapes),
+   and must give the same bits (K5 in fp32 and from bf16); the fused l2
+   search is run again on that K3 and must return the same ids.
 4. Build a GATE index over a synthetic SIFT-shaped database (N x 128,
    default N = 1,000,000) with the default GateConfig, on the card.
 5. Search Q held-out queries (default 10,000), k = 10: GATE with the
@@ -62,8 +64,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -223,6 +227,35 @@ def hold_baseline(torch, name, got, other) -> float:
     return float((got - other).abs().max()) if got.numel() else 0.0
 
 
+def time_kernel(torch, rec, name, fn, args_of, got, other=None,
+                reps: int = 30) -> dict:
+    """``rec["ms"]``: the median device time of ``fn(*args_of(i))``.  With
+    ``other`` (the same wrapper on a baseline source, ``baseline_kernel``),
+    ``other(*args_of(0))`` must give the bits of ``got`` (a tensor or a
+    tuple of them) and the two are timed in turns (``baseline_ms``)."""
+    def calls(f):
+        return lambda i: f(*args_of(i))
+
+    if other is None:
+        rec["ms"] = cuda_ms(torch, calls(fn), reps)
+        return rec
+    theirs = other(*args_of(0))
+    pairs = zip(got, theirs) if isinstance(got, tuple) else [(got, theirs)]
+    rec["baseline_max_abs_err"] = max(
+        hold_baseline(torch, name, a, b) for a, b in pairs)
+    rec["ms"], rec["baseline_ms"] = pair_ms(torch, calls(fn), calls(other), reps)
+    return rec
+
+
+def net_of_floor(rec: dict, floor_ms: float) -> dict:
+    """Add ``rec``'s kernel (and baseline) time net of the timing floor,
+    an empty kernel's time under the same events, beside the raw one."""
+    for key in ("ms", "baseline_ms"):
+        if key in rec:
+            rec[f"{key}_net"] = rec[key] - floor_ms
+    return rec
+
+
 def twotower_record(torch, TT, ref, zq, hubs, n_sm: int, baseline=None) -> dict:
     """K3 on (B, d) x (H, d): its launch plan (the source's, held against
     ``TT.plan``), its output against the plain version (rtol = atol = 1e-5),
@@ -250,15 +283,10 @@ def twotower_record(torch, TT, ref, zq, hubs, n_sm: int, baseline=None) -> dict:
             torch, lambda i: cos_lib(zq[:, None, :], hubs[None, :, :], dim=-1)),
         **bound((B * d + H * d + B * H) * 4, 2 * B * H * d + 2 * (B + H) * d),
     }
-    if baseline is None:
-        rec["ms"] = cuda_ms(torch, lambda i: TT.twotower_score(zq, hubs))
-        return rec
-    run = baseline_kernel(baseline["twotower_score"], TT, "twotower_score")
-    rec["baseline_max_abs_err"] = hold_baseline(
-        torch, f"twotower_score {B}x{H}x{d}", got, run(zq, hubs))
-    rec["ms"], rec["baseline_ms"] = pair_ms(
-        torch, lambda i: TT.twotower_score(zq, hubs), lambda i: run(zq, hubs))
-    return rec
+    other = (baseline_kernel(baseline["twotower_score"], TT, "twotower_score")
+             if baseline is not None else None)
+    return time_kernel(torch, rec, f"twotower_score {B}x{H}x{d}",
+                       TT.twotower_score, lambda i: (zq, hubs), got, other)
 
 
 def l2_record(torch, L2, ref, q, c_of, reps: int, baseline=None) -> dict:
@@ -288,18 +316,50 @@ def l2_record(torch, L2, ref, q, c_of, reps: int, baseline=None) -> dict:
         "library_call": "torch.cdist (returns the root, not its square)",
     }
     del want
-    if baseline is None:
-        rec["ms"] = cuda_ms(torch, lambda i: L2.l2dist(q, c_of(i)), reps)
-        return rec
-    run = baseline_kernel(baseline["l2dist"], L2, "l2dist")
-    err = hold_baseline(torch, f"l2dist {Q}x{C}x{D}", got, run(q, c))
-    del got
-    qb, cb = q.to(torch.bfloat16), c.to(torch.bfloat16)
-    rec["baseline_max_abs_err"] = max(err, hold_baseline(
-        torch, f"l2dist {Q}x{C}x{D} bf16", L2.l2dist(qb, cb), run(qb, cb)))
-    rec["ms"], rec["baseline_ms"] = pair_ms(
-        torch, lambda i: L2.l2dist(q, c_of(i)), lambda i: run(q, c_of(i)), reps)
-    return rec
+    other = None
+    if baseline is not None:
+        other = baseline_kernel(baseline["l2dist"], L2, "l2dist")
+        qb, cb = q.to(torch.bfloat16), c.to(torch.bfloat16)
+        rec["bf16_baseline_max_abs_err"] = hold_baseline(
+            torch, f"l2dist {Q}x{C}x{D} bf16", L2.l2dist(qb, cb), other(qb, cb))
+    return time_kernel(torch, rec, f"l2dist {Q}x{C}x{D}", L2.l2dist,
+                       lambda i: (q, c_of(i)), got, other, reps)
+
+
+def topk_record(torch, TK, ref, d_of, k: int, reps: int, baseline=None,
+                got=None) -> dict:
+    """K4 on rows ``d_of(i)`` (B, C), one set per timed call: its plan (held
+    against ``TK.plan``), ``got`` (or a new launch on ``d_of(0)``) with the
+    plain stable sort's indices and values, its time beside its bound, the
+    plain version's, ``torch.topk``'s and a plain read's (``read_ms``:
+    ``torch.sum`` of the rows, what reading them once costs in practice);
+    with ``baseline``, the baseline source's time and its bits."""
+    d = d_of(0)
+    B, C = d.shape
+    got_plan = TK.cuda_plan(d, k)
+    want_plan = TK.plan(B, C, k)
+    require(got_plan == want_plan,
+            f"topk_min plan {got_plan} differs from plan() {want_plan}")
+    if got is None:
+        got = TK.topk_min(d, k)
+    ve, ie = ref.topk_min_ref(d, k)
+    require(bool(torch.equal(got[1], ie)) and bool(torch.equal(got[0], ve)),
+            f"topk_min {B}x{C} k={k}: kernel disagrees with its plain version")
+    rec = {
+        "shape": [B, C, k], "plan": got_plan,
+        "max_abs_err": float((got[0] - ve).abs().max()),
+        "plain_ms": cuda_ms(torch, lambda i: ref.topk_min_ref(d_of(i), k), reps),
+        "library_ms": cuda_ms(
+            torch, lambda i: torch.topk(d_of(i), k, dim=1, largest=False), reps),
+        "read_ms": cuda_ms(torch, lambda i: d_of(i).sum(), reps),
+        **bound(B * C * 4 + B * k * 8, B * C * k),
+        "library_call": "torch.topk(largest=False), timed only: its tie "
+                        "order differs",
+    }
+    other = (baseline_kernel(baseline["topk"], TK, "topk_min")
+             if baseline is not None else None)
+    return time_kernel(torch, rec, f"topk_min {B}x{C} k={k}", TK.topk_min,
+                       lambda i: (d_of(i), k), got, other, reps)
 
 
 def api_phase(torch, np, db, queries, dev, reps: int = 30, baseline=None) -> dict:
@@ -308,12 +368,16 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30, baseline=None) -> dic
     exact top-10 over the first 65,536 db rows, where K5 and K4 are also
     timed alone.  The path is driven once with the launch counts at 0
     (``launches``); the checks and timings after it are not counted.
-    ``baseline`` as ``l2_record``."""
+    ``baseline`` maps each source's stem to a library from
+    ``load_baseline``: K4, K5 and K6 of it are timed in turns with the
+    port's and must give the same bits."""
     from repro_torch import exact_knn
     from repro_torch import kernels as K
     from repro_torch.kernels import ops, ref
 
     L2 = importlib.import_module("repro_torch.kernels.l2dist")
+    TK = importlib.import_module("repro_torch.kernels.topk")
+    GD = importlib.import_module("repro_torch.kernels.gather_dist")
     rng = np.random.default_rng(12)
     Q, C, D = L2_SHAPE
     B, Ck, k = TOPK_SHAPE
@@ -345,11 +409,6 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30, baseline=None) -> dic
     launches = K.launch_counts()
     out = {"launches": launches}
 
-    def time3(fn, plain, library):
-        return {"ms": cuda_ms(torch, fn, reps),
-                "plain_ms": cuda_ms(torch, plain, reps),
-                "library_ms": cuda_ms(torch, library, reps) if library else None}
-
     # K5 l2dist: the counted output has the bits of the one l2_record holds
     require(bool(torch.equal(out_l2, L2.l2dist(lq, lc[0]))),
             "l2dist: two launches on the same inputs differ")
@@ -357,18 +416,8 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30, baseline=None) -> dic
     out["l2dist"] = l2_record(torch, L2, ref, lq, lambda i: lc[i], reps,
                               baseline)
     # K4 topk_min: values and indices equal to the stable sort
-    ve, ie = ref.topk_min_ref(td[0], k)
-    require(bool(torch.equal(out_tk[1], ie)) and bool(torch.equal(out_tk[0], ve)),
-            "topk_min: kernel disagrees with its plain version")
-    out["topk_min"] = {
-        "shape": [B, Ck, k], "max_abs_err": float((out_tk[0] - ve).abs().max()),
-        **time3(lambda i: ops.topk_min(td[i], k),
-                lambda i: ref.topk_min_ref(td[i], k),
-                lambda i: torch.topk(td[i], k, dim=1, largest=False)),
-        **bound(B * Ck * 4 + B * k * 8, B * Ck * k),
-        "library_call": "torch.topk(largest=False), timed only: its tie "
-                        "order differs",
-    }
+    out["topk_min"] = topk_record(torch, TK, ref, lambda i: td[i], k, reps,
+                                  baseline, out_tk)
     # K6 gather_dist: dot form against the plain difference form
     want = ref.gather_dist_ref(gv[0], gq, gi[0])
     bad = gi[0] < 0
@@ -377,17 +426,24 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30, baseline=None) -> dic
     require(bool(torch.allclose(out_gd[~bad], want[~bad], rtol=2e-5, atol=2e-4)),
             "gather_dist: kernel disagrees with its plain version")
     n_valid = float((gi[:reps] >= 0).sum()) / reps
-    out["gather_dist"] = {
+    rec = {
         "shape": [Bg, Rg, Dg],
         "max_abs_err": float((out_gd[~bad] - want[~bad]).abs().max()),
-        **time3(lambda i: ops.gather_dist(gv[i], gq, gi[i]),
-                lambda i: ref.gather_dist_ref(gv[i], gq, gi[i]),
-                lambda i: torch.cdist(gv[i], gq[:, None, :])),
+        "plain_ms": cuda_ms(
+            torch, lambda i: ref.gather_dist_ref(gv[i], gq, gi[i]), reps),
+        "library_ms": cuda_ms(
+            torch, lambda i: torch.cdist(gv[i], gq[:, None, :]), reps),
+        "read_ms": cuda_ms(torch, lambda i: gv[i].sum(), reps),
         **bound(n_valid * Dg * 4 + Bg * Dg * 4 + Bg * Rg * 8, n_valid * Dg * 6),
         "library_call": "torch.cdist of each (R, d) block to its query: the "
                         "nearest single call; it reads every row, masks "
                         "nothing and returns the root",
     }
+    other = (baseline_kernel(baseline["gather_dist"], GD, "gather_dist")
+             if baseline is not None else None)
+    out["gather_dist"] = time_kernel(
+        torch, rec, f"gather_dist {Bg}x{Rg}x{Dg}", GD.gather_dist,
+        lambda i: (gv[i], gq, gi[i]), out_gd, other, reps)
     # composed: exact top-10 of 1024 queries over 65,536 rows, on the
     # counted set and on a second one (the last 1024 queries and the last
     # 65,536 rows), so the agreement gate has two readings per run
@@ -396,13 +452,10 @@ def api_phase(torch, np, db, queries, dev, reps: int = 30, baseline=None) -> dic
     comp_d = rec.pop("d")
     rec["ms"] = cuda_ms(
         torch, lambda i: ops.topk_min(ops.l2dist(cq, chunk), kc), 5)
-    # K4 alone at this shape, beside its bound and torch.topk
-    rec["topk_ms"] = cuda_ms(torch, lambda i: ops.topk_min(comp_d, kc), 5)
-    rec["topk_plain_ms"] = cuda_ms(
-        torch, lambda i: ref.topk_min_ref(comp_d, kc), 5)
-    rec["topk_library_ms"] = cuda_ms(
-        torch, lambda i: torch.topk(comp_d, kc, dim=1, largest=False), 5)
-    rec["topk_bound"] = bound(Qc * Nc * 4 + Qc * kc * 8, Qc * Nc * kc)
+    # K4 alone at this shape (268 MB of distances, five times L2), beside
+    # its bound and torch.topk
+    rec["topk_min"] = topk_record(torch, TK, ref, lambda i: comp_d, kc, 5,
+                                  baseline)
     del comp_d
     # K5 alone at this shape (the same rows every call: 32 MB, in L2)
     rec["l2dist"] = l2_record(torch, L2, ref, cq, lambda i: chunk, 10, baseline)
@@ -583,18 +636,36 @@ def _spread(xs) -> dict:
             "min": min(xs), "max": max(xs)} if xs else {}
 
 
-def load_baseline(path: Path, functions: dict):
+def load_baseline(path: Path):
     """Build another source (e.g. the parent commit's) with the port's nvcc
-    flags into the build directory and bind ``functions`` (the launch
-    entry points it shares with the port's); returns ``(lib, ptxas log)``."""
+    flags into the build directory, under a name keyed by its bytes and
+    those of the headers it includes, and bind the launch entry points
+    (``_LAUNCH``) of the port's wrapper module of the same stem; returns
+    ``(lib, ptxas log)``."""
     from repro_torch.kernels import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"baseline-{path.stem}.so"
+    key = hashlib.sha256(_build.source_bytes(path)).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"baseline-{path.stem}-{key}.so"
     p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                         str(path)], capture_output=True, text=True)
     require(p.returncode == 0, f"baseline {path} build failed:\n{p.stdout}{p.stderr}")
+    functions = importlib.import_module(f"repro_torch.kernels.{path.stem}")._LAUNCH
     return _build.bind(out, functions), p.stdout + p.stderr
+
+
+def load_baselines(paths) -> dict:
+    """``load_baseline`` of each distinct source among ``paths`` (a source
+    named twice is built once), one nvcc each, all started together; logs
+    each one's ptxas lines and returns ``{resolved path: library}``."""
+    unique = list(dict.fromkeys(Path(p).resolve() for p in paths))
+    libs = {}
+    with ThreadPoolExecutor(max(1, len(unique))) as pool:
+        jobs = {p: pool.submit(load_baseline, p) for p in unique}
+        for p, job in jobs.items():
+            libs[p], blog = job.result()
+            log_ptxas(f"baseline {p.stem}", blog)
+    return libs
 
 
 @contextlib.contextmanager
@@ -618,10 +689,27 @@ def baseline_kernel(lib, module, name: str):
     return run
 
 
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name and template arguments from a mangled entry
+    name (``..._cu_<8 hex><len><name>I<args>EE...``), else ``mangled``."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if m is None:
+        return mangled
+    end = m.end() + int(m.group(1))
+    args = re.match(r"I(.*?)EE", mangled[end:])
+    return mangled[m.end():end] + (f"<{args.group(1)}>" if args else "")
+
+
 def log_ptxas(tag: str, text: str) -> None:
+    """Each kernel's register and spill lines from an ``-Xptxas -v`` log,
+    named by the entry function they follow."""
+    name = ""
     for ln in text.splitlines():
-        if "registers" in ln or "spill" in ln:
-            log(f"  ptxas {tag}: {ln.strip()}")
+        entry = re.search(r"entry function '([^']+)'", ln)
+        if entry:
+            name = kernel_name(entry.group(1))
+        elif "registers" in ln or "spill" in ln:
+            log(f"  ptxas {tag} {name}: {ln.strip()}")
 
 
 def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
@@ -930,7 +1018,8 @@ REPLACES = {"gather_rows_dist": "src/repro/kernels/gather_dist.py:129",
             "l2dist": "src/repro/kernels/l2dist.py:49",
             "gather_dist": "src/repro/kernels/gather_dist.py:59"}
 SHAPE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-              "max_abs_err", "baseline_ms", "baseline_max_abs_err", "plan")
+              "max_abs_err", "baseline_ms", "baseline_max_abs_err", "plan",
+              "ms_net", "baseline_ms_net", "read_ms")
 
 
 def _at_shape(rec: dict) -> dict:
@@ -989,15 +1078,8 @@ def kernels_line(kres, api, hop, launches, serve_launches) -> list:
             entry["serve_shape"] = _at_shape(kres[name]["serve"])
         else:
             entry["library_call"] = main_rec["library_call"]
-        if name == "l2dist":
-            entry["composed_shape"] = _at_shape(comp["l2dist"])
-        elif name == "topk_min":
-            entry["composed_shape"] = {
-                "shape": [comp["shape"][0], comp["shape"][1], comp["shape"][3]],
-                "ms": comp["topk_ms"], "plain_ms": comp["topk_plain_ms"],
-                "library_ms": comp["topk_library_ms"],
-                "bound_ms": comp["topk_bound"]["bound_ms"],
-                "bound_by": comp["topk_bound"]["bound_by"]}
+        if name in ("l2dist", "topk_min"):
+            entry["composed_shape"] = _at_shape(comp[name])
         line.append(entry)
     return line
 
@@ -1014,11 +1096,13 @@ def main(argv=None) -> int:
                          "its hop kernels are timed and held on the same "
                          "recorded calls as the port's")
     ap.add_argument("--kernel-baseline", type=Path, default=None,
-                    help="a directory with another twotower_score.cu and "
-                         "l2dist.cu (e.g. the parent commit's csrc): K3 and "
-                         "K5 of both are timed on the same inputs, must give "
-                         "the same bits, and the fused search is run again "
-                         "on the baseline K3 and must return the same ids")
+                    help="a directory with another twotower_score.cu, "
+                         "topk.cu, l2dist.cu and gather_dist.cu (e.g. the "
+                         "parent commit's csrc): K3-K6 of both are timed on "
+                         "the same inputs and must give the same bits, and "
+                         "the fused search is run again on the baseline K3 "
+                         "and must return the same ids; a gather_dist.cu "
+                         "also named by --hop-baseline is built once")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1055,17 +1139,16 @@ def main(argv=None) -> int:
         + json.dumps({k: round(v, 2) for k, v in secs.items()}))
     for name, text in _build.build_logs.items():
         log_ptxas(name, text)
-    kbase = None
+    # other sources to time beside the port's, each built once
+    kernel_srcs = {}
     if args.kernel_baseline is not None:
-        kbase = {}
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-            jobs = {name: pool.submit(
-                load_baseline, args.kernel_baseline / f"{name}.cu",
-                importlib.import_module(f"repro_torch.kernels.{name}")._LAUNCH)
-                for name in ("twotower_score", "l2dist")}
-            for name, job in jobs.items():
-                kbase[name], blog = job.result()
-                log_ptxas(f"baseline {name}", blog)
+        kernel_srcs = {stem: args.kernel_baseline / f"{stem}.cu"
+                       for stem in ("twotower_score", "topk", "l2dist",
+                                    "gather_dist")}
+    hop_srcs = [args.hop_baseline] if args.hop_baseline is not None else []
+    libs = load_baselines([*kernel_srcs.values(), *hop_srcs])
+    kbase = ({stem: libs[p.resolve()] for stem, p in kernel_srcs.items()}
+             if kernel_srcs else None)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     # the least a kernel reads under cuda_ms: an empty spin kernel's time
     floor_ms = cuda_ms(torch, lambda i: torch.cuda._sleep(0))
@@ -1085,8 +1168,18 @@ def main(argv=None) -> int:
 
     # 3. the kernel API path
     api = api_phase(torch, np, db, eval_q, dev, baseline=kbase)
+    for rec in (api["topk_min"], api["composed_top10"]["topk_min"],
+                api["gather_dist"]):
+        net_of_floor(rec, floor_ms)
     for name, rec in api.items():
         log(f"api {name}: " + json.dumps(rec))
+    for label, rec in (("K4", api["topk_min"]),
+                       ("K4", api["composed_top10"]["topk_min"]),
+                       ("K6", api["gather_dist"])):
+        log(f"{label} {rec['shape']} net of the {floor_ms * 1e3:.2f} us floor: "
+            + json.dumps({key: rec[key] for key in
+                          ("ms", "ms_net", "baseline_ms", "baseline_ms_net")
+                          if key in rec}))
     for name in ("topk_min", "l2dist", "gather_dist"):
         require(api["launches"][name] > 0,
                 f"kernel {name} was not launched on the kernel API path")
@@ -1154,13 +1247,8 @@ def main(argv=None) -> int:
         log("search on the baseline K3: " + json.dumps(on_base))
 
     # 7b. the hop kernels at the calls the searches above really make
-    baseline = None
-    if args.hop_baseline is not None:
-        baseline, blog = load_baseline(
-            args.hop_baseline,
-            importlib.import_module("repro_torch.kernels.gather_dist")._FUNCTIONS)
-        log_ptxas("hop baseline", blog)
-    hop = hop_phase(torch, np, idx, eval_q, dev, baseline)
+    hop = hop_phase(torch, np, idx, eval_q, dev,
+                    libs[args.hop_baseline.resolve()] if hop_srcs else None)
 
     # 8. the serve path; its own counts (the two daemons' runs)
     serve = serve_phase(torch, np, idx, eval_q, dev)

@@ -48,12 +48,29 @@
 // sum rounded on its own (no FMA contraction) as the plain PyTorch version
 // rounds them, so the two differ only in the order of the d-term sum.
 //
-// K6 takes rows the caller has already gathered, (B, R, d) contiguous: one
-// block per query with q in shared memory, one warp per (b, r) slot, float4
-// loads of the row vecs[b, r, :].  It is bound by the bytes of that block
-// (4d per valid slot, read once, in order).  It computes the TPU kernel's
-// dot form max(|v|^2 - 2 v.q + |q|^2, 0), all three sums in the one pass; an
-// id < 0 writes exactly 3.4e38 and reads nothing of its row.
+// K6 takes rows the caller has already gathered, (B, R, d) contiguous, and
+// computes the TPU kernel's dot form max(|v|^2 - 2 v.q + |q|^2, 0); an
+// id < 0 writes exactly 3.4e38 and reads nothing of its row, and any id >= 0
+// is a valid row (only the sign is read: no NaN rule).  It is bound by the
+// bytes of the block (4d per valid slot, read once, in order).  A first
+// design walked each warp's slots in series (load the id, branch, load the
+// row, reduce, store: one row in flight a warp, two dependent round trips
+// a slot) and summed |q|^2 again for every slot.  This one pays two round
+// trips a query: one block per query, each warp reads its kRegRows slots'
+// ids (in flight while q is staged in shared memory), then issues every
+// valid row's loads (float4 a lane on 16-byte aligned rows, scalars
+// otherwise) before it reduces any, so at R <= 32 all of a block's rows are
+// in flight at once; |q|^2 is summed once a warp.  That takes ~58 registers
+// (4 blocks of 256 a SM, two waves at B = 1024): capping it at 32 for one
+// wave spilled and was slower.  The rows sit at fixed
+// places, so no gather, compaction or bulk copy is needed (a design that
+// compacted the valid slots and bulk-copied each 512-byte row, as K1 does,
+// was slower than the first design at (1024, 32, 128)).  Each sum keeps the
+// first design's arithmetic: lane i takes float4 i at stride 32 (element i
+// when d % 4 != 0) in one nested fmaf chain for each of v.v, v.q and q.q,
+// then the xor tree, so every path gives the first design's bits (a
+// misaligned view with d % 4 == 0, which the first design summed element by
+// element, now takes the float4 order of the aligned rows).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -430,46 +447,102 @@ rows_q8_regs(const int* __restrict__ ids, const int8_t* __restrict__ codes,
   }
 }
 
+// ---------------------------------------------------------------- K6
+// One row's |v|^2 and v.q terms of float4 i, in the first design's chains.
+__device__ __forceinline__ void dot4(float4 v, float4 w, float& vn, float& vq) {
+  vn = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, vn))));
+  vq = fmaf(v.x, w.x, fmaf(v.y, w.y, fmaf(v.z, w.z, fmaf(v.w, w.w, vq))));
+}
+
+// |q|^2 of the staged query, as every slot of the first design summed it.
 template <bool kVec4>
-__global__ void __launch_bounds__(kWarps * 32)
-gathered_l2_kernel(const float* __restrict__ vecs, const float* __restrict__ q,
-                   const int* __restrict__ ids, float* __restrict__ out, int R,
-                   int d) {
+__device__ __forceinline__ float q_norm(const float* qs, int d, int lane) {
+  float qn = 0.f;
+  if (kVec4) {
+    const float4* q4 = reinterpret_cast<const float4*>(qs);
+    for (int i = lane; i < (d >> 2); i += 32) {
+      const float4 w = q4[i];
+      qn = fmaf(w.x, w.x, fmaf(w.y, w.y, fmaf(w.z, w.z, fmaf(w.w, w.w, qn))));
+    }
+  } else {
+    for (int i = lane; i < d; i += 32) qn = fmaf(qs[i], qs[i], qn);
+  }
+  return warp_sum(qn);
+}
+
+__device__ __forceinline__ float dot_l2(float vn, float vq, float qn) {
+  return fmaxf(vn - 2.f * vq + qn, 0.f);
+}
+
+// One block per query, kRegRows slots a warp at a time.  kVec4: d % 4 == 0,
+// summed in float4 groups; kLoad4: the rows are 16-byte aligned and loaded
+// as float4, else element by element.
+template <bool kVec4, bool kLoad4>
+__global__ void __launch_bounds__(kThreads)
+gathered_l2(const float* __restrict__ vecs, const float* __restrict__ q,
+            const int* __restrict__ ids, float* __restrict__ out, int R,
+            int d) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.x;
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ids += (long long)b * R;
+  out += (long long)b * R;
+  const float* rows = vecs + (long long)b * R * d;
+  // the warp's first slots' ids are in flight while q is staged
+  const int r0 = warp * kRegRows;
+  int id[kRegRows];
+#pragma unroll
+  for (int u = 0; u < kRegRows; ++u) id[u] = r0 + u < R ? __ldg(ids + r0 + u) : -1;
   stage_query(qs, q + (long long)b * d, d);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < R; r += kWarps) {
-    const long long slot = (long long)b * R + r;
-    if (ids[slot] < 0) {
-      if (lane == 0) out[slot] = kInf;
-      continue;
+  const float qn = q_norm<kVec4>(qs, d, lane);
+  for (int r = r0; r < R; r += kWarps * kRegRows) {
+    if (r != r0) {
+#pragma unroll
+      for (int u = 0; u < kRegRows; ++u) id[u] = r + u < R ? __ldg(ids + r + u) : -1;
     }
-    const float* row = vecs + slot * d;
-    float vn = 0.f, vq = 0.f, qn = 0.f;
+    float vn[kRegRows], vq[kRegRows];
+#pragma unroll
+    for (int u = 0; u < kRegRows; ++u) vn[u] = vq[u] = 0.f;
     if (kVec4) {
-      const float4* row4 = reinterpret_cast<const float4*>(row);
       const float4* q4 = reinterpret_cast<const float4*>(qs);
       for (int i = lane; i < (d >> 2); i += 32) {
-        const float4 v = __ldg(row4 + i);
+        const float* p = rows + (long long)r * d + 4 * i;
+        float4 v[kRegRows];  // every valid row's float4 in flight first
+#pragma unroll
+        for (int u = 0; u < kRegRows; ++u, p += d) {
+          v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (id[u] < 0) continue;
+          v[u] = kLoad4 ? __ldg(reinterpret_cast<const float4*>(p))
+                        : make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+        }
         const float4 w = q4[i];
-        vn = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, vn))));
-        vq = fmaf(v.x, w.x, fmaf(v.y, w.y, fmaf(v.z, w.z, fmaf(v.w, w.w, vq))));
-        qn = fmaf(w.x, w.x, fmaf(w.y, w.y, fmaf(w.z, w.z, fmaf(w.w, w.w, qn))));
+#pragma unroll
+        for (int u = 0; u < kRegRows; ++u) dot4(v[u], w, vn[u], vq[u]);
       }
     } else {
       for (int i = lane; i < d; i += 32) {
-        const float v = __ldg(row + i), w = qs[i];
-        vn = fmaf(v, v, vn);
-        vq = fmaf(v, w, vq);
-        qn = fmaf(w, w, qn);
+        float v[kRegRows];
+#pragma unroll
+        for (int u = 0; u < kRegRows; ++u)
+          v[u] = id[u] < 0 ? 0.f : __ldg(rows + (long long)(r + u) * d + i);
+        const float w = qs[i];
+#pragma unroll
+        for (int u = 0; u < kRegRows; ++u) {
+          vn[u] = fmaf(v[u], v[u], vn[u]);
+          vq[u] = fmaf(v[u], w, vq[u]);
+        }
       }
     }
-    vn = warp_sum(vn);
-    vq = warp_sum(vq);
-    qn = warp_sum(qn);
-    if (lane == 0) out[slot] = fmaxf(vn - 2.f * vq + qn, 0.f);
+#pragma unroll
+    for (int u = 0; u < kRegRows; ++u) {
+      if (r + u >= R) break;
+      if (id[u] < 0) {
+        if (lane == 0) out[r + u] = kInf;
+        continue;
+      }
+      const float a = warp_sum(vn[u]), c = warp_sum(vq[u]);
+      if (lane == 0) out[r + u] = dot_l2(a, c, qn);
+    }
   }
 }
 
@@ -575,20 +648,24 @@ extern "C" int gather_dist_f32(const void* vecs, const void* q,
                                const void* ids, void* out, int B, int R, int d,
                                void* stream) {
   const size_t smem = (size_t)d * sizeof(float);
-  const bool vec4 = (d % 4 == 0) && ((uintptr_t)vecs % 16 == 0);
+  const bool vec4 = d % 4 == 0;
+  const bool load4 = vec4 && (uintptr_t)vecs % 16 == 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(B), block(kWarps * 32);
+  const dim3 grid(B), block(kThreads);
   const float* v = (const float*)vecs;
   const float* qq = (const float*)q;
   const int* i = (const int*)ids;
   float* o = (float*)out;
   cudaError_t e;
-  if (vec4) {
-    if ((e = allow_smem(gathered_l2_kernel<true>, smem))) return e;
-    gathered_l2_kernel<true><<<grid, block, smem, s>>>(v, qq, i, o, R, d);
+  if (load4) {
+    if ((e = allow_smem(gathered_l2<true, true>, smem))) return e;
+    gathered_l2<true, true><<<grid, block, smem, s>>>(v, qq, i, o, R, d);
+  } else if (vec4) {
+    if ((e = allow_smem(gathered_l2<true, false>, smem))) return e;
+    gathered_l2<true, false><<<grid, block, smem, s>>>(v, qq, i, o, R, d);
   } else {
-    if ((e = allow_smem(gathered_l2_kernel<false>, smem))) return e;
-    gathered_l2_kernel<false><<<grid, block, smem, s>>>(v, qq, i, o, R, d);
+    if ((e = allow_smem(gathered_l2<false, false>, smem))) return e;
+    gathered_l2<false, false><<<grid, block, smem, s>>>(v, qq, i, o, R, d);
   }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,8 @@ the caller already gathered, (B, R, d).  The CUDA source is
 over a query's ids that writes the invalid slots and compacts the valid
 ones, then the valid rows by bulk async copy into shared memory (rows of a
 multiple of 16 bytes on 16-byte aligned bases), or through registers for
-any other width.
+any other width.  ``gather_dist`` takes the same front and ring with the
+slot as the row, and sums ``‖q‖²`` once a query.
 
 On CPU tensors, or with ``interpret=True``, the wrappers run the plain
 versions in ``kernels.ref``; on CUDA tensors they launch the kernels.
@@ -24,7 +25,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FUNCTIONS = {
+_LAUNCH = {
     "gather_rows_dist_f32": [_P, _P, _P, _P, _P, _I, _I, _L, _I, _P],
     "gather_rows_dist_q8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P],
     "gather_dist_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -36,7 +37,7 @@ _MAX_WIDTH = (232448 - 5168) // 4
 
 
 def _lib():
-    return _build.load("gather_dist", _FUNCTIONS)
+    return _build.load("gather_dist", _LAUNCH)
 
 
 def _expect(cond: bool, msg: str) -> None:

@@ -22,6 +22,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 TT = importlib.import_module("repro_torch.kernels.twotower_score")
+TK = importlib.import_module("repro_torch.kernels.topk")
 L2 = importlib.import_module("repro_torch.kernels.l2dist")
 
 
@@ -35,6 +36,8 @@ def rehearsal(monkeypatch):
         q.shape[0], h.shape[0], q.shape[1], n_sm=132))
     monkeypatch.setattr(L2, "cuda_plan", lambda q, c: L2.plan(
         q.shape[0], c.shape[0], q.shape[1], bf16=q.dtype == torch.bfloat16))
+    monkeypatch.setattr(TK, "cuda_plan", lambda d, k: TK.plan(
+        d.shape[0], d.shape[1], k))
     for name, shape in (("SERVE_BATCH", 48), ("L2_SHAPE", (40, 300, 128)),
                         ("TOPK_SHAPE", (16, 128, 8)),
                         ("GATHER_SHAPE", (24, 8, 128)),
@@ -49,8 +52,8 @@ def rehearsal(monkeypatch):
 @pytest.mark.parametrize("with_baseline", [False, True])
 def test_kernel_and_api_phases_rehearsal(rehearsal, with_baseline):
     db, queries = rehearsal
-    base = ({"twotower_score": object(), "l2dist": object()}
-            if with_baseline else None)
+    base = (dict.fromkeys(("twotower_score", "topk", "l2dist", "gather_dist"),
+                          object()) if with_baseline else None)
     kres = chip_smoke.kernel_phase(torch, np, db, queries, "cpu", n_sm=132,
                                    baseline=base)
     api = chip_smoke.api_phase(torch, np, db, queries, "cpu", reps=2,
@@ -66,11 +69,22 @@ def test_kernel_and_api_phases_rehearsal(rehearsal, with_baseline):
     assert api["l2dist"]["shape"] == [40, 300, 128]
     assert comp["l2dist"]["shape"] == [32, 1500, 128]
     assert comp["l2dist"]["plan"]["path"] == "sgemm"
-    assert comp["topk_bound"]["bytes"] == 32 * 1500 * 4 + 32 * 10 * 8
-    for rec in (api["l2dist"], comp["l2dist"]):
+    assert comp["topk_min"]["bytes"] == 32 * 1500 * 4 + 32 * 10 * 8
+    assert comp["topk_min"]["shape"] == [32, 1500, 10]
+    assert api["topk_min"]["shape"] == [16, 128, 8]
+    assert api["topk_min"]["plan"] == {"path": "select", "threads": 32,
+                                       "smem": 2304, "grid": 16}
+    assert comp["topk_min"]["plan"] == {"path": "select", "threads": 128,
+                                        "smem": 9216, "grid": 32}
+    for rec in (api["l2dist"], comp["l2dist"], api["topk_min"],
+                comp["topk_min"], api["gather_dist"]):
         assert rec["max_abs_err"] == 0.0  # plain against plain
         assert rec.get("baseline_max_abs_err", 0.0) == 0.0
         assert ("baseline_ms" in rec) == with_baseline
+    for rec in (api["topk_min"], comp["topk_min"], api["gather_dist"]):
+        chip_smoke.net_of_floor(rec, 0.25)
+        assert rec["ms_net"] == rec["ms"] - 0.25
+        assert ("baseline_ms_net" in rec) == with_baseline
     # the path was driven with the counts at 0 (CPU tensors: no launch)
     assert set(api["launches"]) == set(chip_smoke.SOURCES)
 
@@ -94,6 +108,10 @@ def test_kernel_and_api_phases_rehearsal(rehearsal, with_baseline):
     assert by["l2dist"]["composed_shape"]["shape"] == [32, 1500, 128]
     assert by["topk_min"]["composed_shape"]["shape"] == [32, 1500, 10]
     assert by["topk_min"]["composed_shape"]["library_ms"] is not None
+    for e in (by["topk_min"], by["topk_min"]["composed_shape"],
+              by["gather_dist"]):
+        assert "ms_net" in e and ("baseline_ms_net" in e) == with_baseline
+        assert e["read_ms"] is not None
     assert by["gather_rows_dist"]["shape"] == [90, 247]
 
 
@@ -127,3 +145,67 @@ def test_hold_baseline_wants_the_same_bits(monkeypatch):
     assert chip_smoke.hold_baseline(torch, "k", x, x.clone()) == 0.0
     with pytest.raises(RuntimeError, match="bit-equal"):
         chip_smoke.hold_baseline(torch, "k", x, x + 2.0 ** -22)
+
+
+def test_load_baselines_builds_each_source_once(monkeypatch, tmp_path):
+    """--kernel-baseline and --hop-baseline may name one gather_dist.cu:
+    it is built and bound once, and both get that library."""
+    built = []
+    monkeypatch.setattr(chip_smoke, "load_baseline",
+                        lambda p: built.append(p) or (f"lib {p.name}", ""))
+    csrc = tmp_path / "parent" / "csrc"
+    csrc.mkdir(parents=True)
+    srcs = [csrc / f"{stem}.cu" for stem in ("topk", "gather_dist")]
+    libs = chip_smoke.load_baselines(
+        [*srcs, tmp_path / "parent" / ".." / "parent" / "csrc" / "gather_dist.cu"])
+    assert built == [p.resolve() for p in srcs]
+    assert libs == {p.resolve(): f"lib {p.name}" for p in srcs}
+    assert chip_smoke.load_baselines([]) == {}
+
+
+def test_load_baseline_names_the_library_by_its_bytes(monkeypatch, tmp_path):
+    """Two sources of one stem (another commit's gather_dist.cu beside a
+    third one) build into two libraries; one source into one."""
+    from repro_torch.kernels import _build
+
+    outs = []
+
+    def nvcc(cmd, **kw):
+        outs.append(Path(cmd[cmd.index("-o") + 1]).name)
+        return type("Done", (), {"returncode": 0, "stdout": "", "stderr": ""})()
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", nvcc)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "bind", lambda path, functions: (path, functions))
+    for name, text in (("a", "// one"), ("b", "// two"), ("c", "// one")):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "gather_dist.cu").write_text(text)
+        lib, _ = chip_smoke.load_baseline(tmp_path / name / "gather_dist.cu")
+        assert set(lib[1]) == {"gather_rows_dist_f32", "gather_rows_dist_q8",
+                               "gather_dist_f32"}
+    assert outs[0] != outs[1] and outs[0] == outs[2]
+    assert all(o.startswith("baseline-gather_dist-") for o in outs)
+
+
+def test_log_ptxas_names_each_kernel(capsys):
+    text = (
+        "ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__5471_7_"
+        "topk_cu_f6d7c84313select_kernelEPKfPfPiii' for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 56 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__ab_14_"
+        "gather_dist_cu_f6d7c84311gathered_l2ILb1ELb0EEEvPKfS2_PKiPfii' for "
+        "'sm_90a'\n"
+        "ptxas info    : Used 59 registers, used 1 barriers\n")
+    chip_smoke.log_ptxas("k", text)
+    out = capsys.readouterr().out.splitlines()
+    assert out == [
+        "  ptxas k select_kernel: 0 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads",
+        "  ptxas k select_kernel: ptxas info    : Used 56 registers, used 1 "
+        "barriers",
+        "  ptxas k gathered_l2<Lb1ELb0>: ptxas info    : Used 59 registers, "
+        "used 1 barriers"]
+    assert chip_smoke.kernel_name("not_mangled") == "not_mangled"

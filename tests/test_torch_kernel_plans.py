@@ -1,10 +1,11 @@
-"""The launch plans of K3 ``twotower_score`` and K5 ``l2dist``, and the build
-key of the CUDA sources, on the CPU.
+"""The launch plans of K3 ``twotower_score``, K4 ``topk_min`` and K5
+``l2dist``, and the build key of the CUDA sources, on the CPU.
 
 Each wrapper module's ``plan`` mirrors the ``make_plan`` of its CUDA source
-(``csrc/twotower_score.cu``, ``csrc/l2dist.cu``): which path a call takes
-from the shapes and the alignment, the query tile and grid of K3 from B and
-the SM count, K5's 1-D grid.  On the card ``tests/test_torch_kernels_cuda.py``
+(``csrc/twotower_score.cu``, ``csrc/topk.cu``, ``csrc/l2dist.cu``): which
+path a call takes from the shapes and the alignment, the query tile and
+grid of K3 from B and the SM count, K4's block size and shared memory from
+C and k, K5's 1-D grid.  On the card ``tests/test_torch_kernels_cuda.py``
 holds each plan against the one the built source computes.  Nothing here
 needs a card or ``nvcc``.
 """
@@ -16,6 +17,7 @@ import pytest
 from repro_torch.kernels import _build
 
 TT = importlib.import_module("repro_torch.kernels.twotower_score")
+TK = importlib.import_module("repro_torch.kernels.topk")
 L2 = importlib.import_module("repro_torch.kernels.l2dist")
 
 SMEM_PER_BLOCK = 232448  # 227 KB a block may opt into
@@ -98,6 +100,41 @@ def test_l2dist_has_no_column_tile_limit():
     assert L2.plan(1, 2**31 - 1, 128)["grid"] == 16_777_216
     assert L2.plan(1, 2**31 - 1, 127)["grid"] == 33_554_432
     assert L2.plan(2**31 - 1, 2**31 - 1, 128)["grid"] == -1
+
+
+@pytest.mark.parametrize("B,C,k,path,threads,smem", [
+    # the kernel API path: 1,024 rows of 65,536 at k = 10, 256 of 1024 at 32
+    (1024, 65536, 10, "select", 128, 9216),
+    (256, 1024, 32, "select", 128, 9216),
+    # the select path's cap, and the pass path beyond it (rows of up to
+    # 10,240 keys staged in 40 KB of shared memory, wider rows not)
+    (256, 1024, 33, "passes", 256, 4096),
+    (64, 10240, 33, "passes", 256, 40960),
+    (64, 10241, 33, "passes", 256, 0),
+    (2, 65536, 64, "passes", 256, 0),
+    # narrow rows take fewer threads: at most four elements a thread
+    (64, 130, 10, "select", 64, 4608),
+    (64, 128, 32, "select", 32, 2304),
+    (64, 129, 32, "select", 64, 4608),
+    (33, 9, 9, "select", 32, 2304),
+    (100, 1, 1, "select", 32, 2304),
+    (5, 513, 1, "select", 128, 9216),
+    (1, 1_000_000, 32, "select", 128, 9216),
+    (7, 40, 40, "passes", 256, 160),
+])
+def test_topk_plan(B, C, k, path, threads, smem):
+    assert TK.plan(B, C, k) == {"path": path, "threads": threads,
+                                "smem": smem, "grid": B}
+    if path == "select":  # a list slot a thread, 256 buffered keys a warp
+        assert smem == 8 * threads + 8 * 256 * threads // 32
+
+
+def test_topk_select_block_grows_with_the_row_up_to_128():
+    got = [TK.plan(8, C, 10)["threads"]
+           for C in (1, 128, 129, 256, 257, 512, 513, 1024, 1025, 10**6)]
+    assert got == [32, 32, 64, 64, 128, 128, 128, 128, 128, 128]
+    for k in range(1, 34):
+        assert TK.plan(8, 1024, k)["path"] == ("select" if k <= 32 else "passes")
 
 
 @pytest.fixture

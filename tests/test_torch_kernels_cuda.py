@@ -302,3 +302,112 @@ def test_gather_dist_kernel_matches_plain(cuda, B, R, D):
     torch.cuda.synchronize()
     _assert_masked(got.cpu(), ref.gather_dist_ref(vecs, q, idt).cpu(), ids,
                    2e-5, 2e-4)
+
+
+# ------------------------------------------ K4's select path and K6's paths
+def _topk_rows(rng, B, C, k, kind):
+    """(B, C) rows of one kind: "normal"; "ties" (values in {0, 1, 2});
+    "straddle" (k - 2 zeros at random places in a row of 2.0, so the k-th
+    place falls inside the run of equal values); "inf" (3.4e38 with every
+    7th -1.0); "special" (normal with NaNs, -0.0, +0.0, +-inf)."""
+    if kind == "normal":
+        return rng.standard_normal((B, C)).astype(np.float32)
+    if kind == "ties":
+        return rng.integers(0, 3, (B, C)).astype(np.float32)
+    if kind == "straddle":
+        d = np.full((B, C), 2.0, np.float32)
+        for row in d:
+            row[rng.choice(C, max(0, min(k - 2, C)), replace=False)] = 0.0
+        return d
+    if kind == "inf":
+        d = np.full((B, C), INF32, np.float32)
+        d[:, ::7] = -1.0
+        return d
+    d = rng.standard_normal((B, C)).astype(np.float32)
+    pick = rng.random((B, C))
+    d[pick < 0.1] = np.nan
+    d[(pick >= 0.1) & (pick < 0.2)] = -0.0
+    d[(pick >= 0.2) & (pick < 0.3)] = 0.0
+    d[(pick >= 0.3) & (pick < 0.32)] = np.inf
+    d[(pick >= 0.32) & (pick < 0.34)] = -np.inf
+    return d
+
+
+# C = 130 puts every odd row 8 bytes off 16; C = 9 every row but each 4th;
+# "elem" / "two" are views 1 / 2 elements past an allocation; k = 32 is the
+# select path's cap and k = 33 the pass path's first; (1024, 65,536, 10)
+# and (256, 1024, 32) are the kernel API path's shapes
+TOPK_CASES = [(64, 130, 10, None), (64, 130, 32, None), (64, 130, 33, None),
+              (33, 9, 9, None), (33, 9, 1, None), (256, 1024, 32, None),
+              (256, 1024, 33, None), (50, 1000, 10, "elem"),
+              (50, 1000, 32, "two"), (7, 5000, 17, "elem"), (3, 3, 3, None),
+              (100, 4, 1, "elem"), (2, 20000, 33, None),
+              (1024, 65536, 10, None), (1, 1_000_000, 10, None),
+              (1, 1_000_000, 32, "elem")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,k,view", TOPK_CASES)
+def test_topk_min_paths_give_the_stable_sort(cuda, B, C, k, view):
+    """Both paths, rows at every 4-byte offset, NaNs and signed zeros, ties
+    across the k-th place: indices and values bit-equal to the stable sort;
+    the source's plan equals ``plan()``."""
+    TK = importlib.import_module("repro_torch.kernels.topk")
+    rng = np.random.default_rng(B + C + k)
+    kinds = (("normal", "special") if B * C > 10**7 else
+             ("normal", "ties", "straddle", "inf", "special"))
+    want_plan = TK.plan(B, C, k)
+    assert want_plan["path"] == ("select" if k <= 32 else "passes")
+    for kind in kinds:
+        (dt,) = _on(cuda, _topk_rows(rng, B, C, k, kind))
+        if view is not None:
+            dt = _misaligned(dt, 1 if view == "elem" else 2)
+        assert TK.cuda_plan(dt, k) == want_plan
+        v, i = TK.topk_min(dt, k)
+        torch.cuda.synchronize()
+        ve, ie = ref.topk_min_ref(dt, k)
+        assert torch.equal(i, ie), kind
+        assert torch.equal(v.view(torch.int32), ve.view(torch.int32)), kind
+        del dt, v, i, ve, ie
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,D", [(1024, 32, 128), (9, 300, 64), (5, 40, 960),
+                                   (40, 247, 128)])
+def test_gather_dist_paths_give_the_same_bits(cuda, B, R, D):
+    """The bulk path and the register path (a misaligned view of the same
+    rows, or of the same query) round every slot alike; invalid slots are
+    exactly 3.4e38."""
+    rng = np.random.default_rng(B * R + D)
+    ids = rng.integers(-1, 50, (B, R)).astype(np.int32)
+    vecs, q, idt = _on(cuda, rng.standard_normal((B, R, D)).astype(np.float32),
+                       rng.standard_normal((B, D)).astype(np.float32), ids)
+    bulk = ops.gather_dist(vecs, q, idt, mode="cuda")
+    regs = ops.gather_dist(_misaligned(vecs, 1), q, idt, mode="cuda")
+    regs_q = ops.gather_dist(vecs, _misaligned(q, 1), idt, mode="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(bulk, regs) and torch.equal(bulk, regs_q)
+    _assert_masked(bulk.cpu(), ref.gather_dist_ref(vecs, q, idt).cpu(), ids,
+                   2e-5, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,view", [(128, None), (128, "elem"), (37, None)])
+def test_gather_dist_reads_only_the_sign_of_an_id(cuda, D, view):
+    """Ids up to 2^30 are valid rows (a distance, never NaN: the rows are
+    already gathered); rows of -1 throughout give exactly 3.4e38."""
+    B, R = 64, 32
+    rng = np.random.default_rng(D)
+    ids = rng.integers(1 << 20, 1 << 30, (B, R)).astype(np.int32)
+    ids[::3] = -1
+    ids[1::3, ::5] = -1
+    vecs, q, idt = _on(cuda, rng.standard_normal((B, R, D)).astype(np.float32),
+                       rng.standard_normal((B, D)).astype(np.float32), ids)
+    if view == "elem":
+        vecs = _misaligned(vecs, 1)
+    got = ops.gather_dist(vecs, q, idt, mode="cuda")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[::3] == float(INF32)).all())
+    _assert_masked(got.cpu(), ref.gather_dist_ref(vecs, q, idt).cpu(), ids,
+                   2e-5, 2e-4)
