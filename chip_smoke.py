@@ -49,10 +49,22 @@ Run from the root of a checkout:
    scraped once, then 16 to a routed daemon with a query log and shadow
    oversearch; every result is held against an unrouted search at its
    rung; per-request latency, QPS, rungs and the hard_frac path.
+9. Feedback phase: the routed daemon's query log read and replayed twice
+   (the same output required); a hardness predictor fitted on it on the
+   card, saved through the checkpoint manager and loaded back; a routed
+   daemon with that predictor_dir hot-reloaded over POST /reload (version
+   1, no compile-cache growth, the calibrated hard_frac adopted) serving 16
+   requests of 1024 fresh queries, each held against search at its side's
+   rung, its latency beside phase 8's formula-routed daemon and the
+   learned and formula replay regret recorded; the index saved under
+   build/, loaded on the card, and its fused and fused_q8 searches of the
+   eval queries required bit-equal to the original's; beam_search_single
+   (fused) on 8 queries required equal to the rows of one batched search,
+   and K1 at its (1, R) calls timed beside its plain version and bound.
 
-Phases 3, 5-6 and 8 are each driven with the kernel launch counts set to 0
-just before and read just after: K4-K6 must launch in phase 3, K1-K3 in
-phases 5-6 and K1/K3 in phase 8.  Every check that fails raises, so the
+Phases 3, 5-6, 8 and 9 are each driven with the kernel launch counts set
+to 0 just before and read just after: K4-K6 must launch in phase 3, K1-K3
+in phases 5-6, K1/K3 in phase 8 and K1-K3 in phase 9.  Every check that fails raises, so the
 script exits non-zero and prints no result.  The last line is the JSON
 result object; the line before it is the card's name and power limit, and
 the one before that lists every kernel (K1 and K2 at the hop phase's
@@ -68,6 +80,7 @@ import hashlib
 import importlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -845,6 +858,26 @@ def _batches(np, eval_q, n: int, size: int, offset: int):
             for i in range(n)]
 
 
+def check_routed(torch, np, idx, router, base, batches, res, batch_recs, dev):
+    """Hold each routed request's ids against ``idx.search`` of its batch
+    at the rung of each side of its split (the query log's easy / hard
+    rows); returns the hard queries of each request."""
+    easy_p = router.rung_params(router.easy_rung, base)
+    hard_p = router.rung_params(router.hard_rung, base)
+    sides = []
+    for q, (r, _), rec in zip(batches, res, batch_recs):
+        sides.append(len(rec["route"]["hard_idx"]))
+        for side, p in (("easy_idx", easy_p), ("hard_idx", hard_p)):
+            rows = np.asarray(rec["route"][side], np.int64)
+            if rows.size == 0:
+                continue
+            want, _ = idx.search(q, params=p, telemetry_sink=None, device=dev)
+            want = want.ids.cpu().numpy()[rows]  # min(beam_width, k) columns
+            require(np.array_equal(r.ids[rows][:, :want.shape[1]], want),
+                    f"routed daemon ids differ from search at its {side} rung")
+    return sides
+
+
 def serve_phase(torch, np, idx, eval_q, dev, n_req: int = 16,
                 batch: int = 1024) -> dict:
     """ServeDaemon over the index: an adaptive daemon, then a routed one.
@@ -949,7 +982,7 @@ def serve_phase(torch, np, idx, eval_q, dev, n_req: int = 16,
     daemon.start()
     warm_s = time.perf_counter() - t0
     batches = _batches(np, eval_q, n_req, batch, n_req)
-    fracs, sides = [], []
+    fracs = []
     try:
         lat, res = [], []
         for q in batches:
@@ -968,25 +1001,15 @@ def serve_phase(torch, np, idx, eval_q, dev, n_req: int = 16,
     batch_recs = [x for x in recs if x["kind"] == "batch"]
     iters = [loop_iters(t, [x["route"]["easy_idx"], x["route"]["hard_idx"]])
              for (_, t), x in zip(res, batch_recs)]
-    easy_p = router.rung_params(router.easy_rung, daemon.base_params)
-    hard_p = router.rung_params(router.hard_rung, daemon.base_params)
-    for q, (r, _), rec in zip(batches, res, batch_recs):
-        sides.append(len(rec["route"]["hard_idx"]))
-        for side, p in (("easy_idx", easy_p), ("hard_idx", hard_p)):
-            rows = np.asarray(rec["route"][side], np.int64)
-            if rows.size == 0:
-                continue
-            want, _ = idx.search(q, params=p, telemetry_sink=None, device=dev)
-            want = want.ids.cpu().numpy()[rows]  # min(beam_width, k) columns
-            require(np.array_equal(r.ids[rows][:, :want.shape[1]], want),
-                    f"routed daemon ids differ from search at its {side} rung")
+    sides = check_routed(torch, np, idx, router, daemon.base_params, batches,
+                         res, batch_recs, dev)
     out["routed"] = {
         "warmup_s": warm_s, **stats(lat, n_req * batch),
         "easy_rung": [router.easy_rung.beam_width, router.easy_rung.max_hops],
         "hard_rung": [router.hard_rung.beam_width, router.hard_rung.max_hops],
         "loop_iters": iters, "hard_frac_path": fracs, "hard_queries": sides,
         "shadow_batches": sum("needed_wide" in x for x in recs),
-        "qlog_records": len(recs),
+        "qlog_records": len(recs), "qlog_path": str(qlog),
     }
     log("serve routed: " + json.dumps(
         {k: v for k, v in out["routed"].items() if k != "latency_s"}))
@@ -1003,6 +1026,208 @@ def serve_phase(torch, np, idx, eval_q, dev, n_req: int = 16,
                                          time.perf_counter() - t0, sp)
     log("serve profile (32, 160) x 1024: " + json.dumps(out["profile_1024"]))
     return out
+
+
+def feedback_phase(torch, np, idx, eval_q, fresh_q, dev, qlog_path,
+                   formula: dict, n_req: int = 16, batch: int = 1024,
+                   n_single: int = 8, min_labeled: int = 32,
+                   work_dir: Path = ROOT / "build") -> dict:
+    """The feedback loop and index persistence on the card (phase 9).
+
+    Replays the routed daemon's query log (twice, the same output required),
+    fits a hardness predictor on it on ``dev``, versions it through the
+    checkpoint manager and loads it back; starts a routed daemon with that
+    ``predictor_dir``, hot-reloads it over POST /reload (version 1, no
+    compile-cache growth, the calibrated hard_frac adopted) and serves
+    ``n_req`` requests of ``fresh_q`` (held per side against ``idx.search``
+    at its rung); saves the index under ``work_dir``, loads it on ``dev``
+    and requires its ``fused`` and ``fused_q8`` searches of ``eval_q`` to
+    be bit-equal to the original's; and holds ``beam_search_single``
+    (``fused``) on ``n_single`` queries against the rows of one
+    ``batched_search``.  The kernel launches of all of it are the caller's
+    to count; K1's (1, R) calls of the single-query searches are returned
+    (``single_calls``) for timing after the count.  ``formula`` is phase
+    8's routed record, set beside this daemon's latency."""
+    from repro_torch import GateIndex, SearchParams
+    from repro_torch.feedback import (
+        fit_from_records, load_predictor, read_log, replay_compare,
+        replay_routing, save_predictor,
+    )
+    from repro_torch.feedback.fit import dataset_from_records
+    from repro_torch.feedback.replay import batch_records
+    from repro_torch.graphs import search as S
+    from repro_torch.obs import DEFAULT_LADDER
+    from repro_torch.serve.daemon import ServeDaemon
+
+    t_phase = time.perf_counter()
+    out = {}
+    records = read_log(qlog_path)
+    X, y = dataset_from_records(records)
+    require(X.shape[0] >= min_labeled,
+            f"the query log has {X.shape[0]} labeled queries < {min_labeled}")
+    r1, r2 = replay_routing(records), replay_routing(records)
+    require(r1 == r2, "two replays of the query log differ")
+    out["log"] = {"records": len(records), "labeled": int(X.shape[0]),
+                  "needed_wide": int(y.sum()),
+                  "formula_replay_regret": r1["regret"]}
+
+    # fit on the card, version it, load it back
+    work_dir.mkdir(parents=True, exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=work_dir))
+    pdir = str(scratch / "predictor")
+    t0 = time.perf_counter()
+    pred = fit_from_records(records, device=dev)
+    t_fit = time.perf_counter() - t0
+    version = save_predictor(pred, pdir)
+    back = load_predictor(pdir)
+    require(version == 1 and back.version == 1,
+            f"predictor saved as v{version}, loaded as v{back.version}")
+    require(all(np.array_equal(back.params[k], pred.params[k])
+                for k in pred.params), "the loaded predictor's params differ")
+    cmp_ = replay_compare(records, back)
+    out["fit"] = {"seconds": t_fit, "metrics": pred.metrics,
+                  "calibration": pred.calibration,
+                  "learned_regret": cmp_["learned"]["regret"],
+                  "formula_regret": cmp_["formula"]["regret"],
+                  "learned_mean_hard_frac": cmp_["learned"]["mean_hard_frac"],
+                  "formula_mean_hard_frac": cmp_["formula"]["mean_hard_frac"]}
+    log("feedback fit: " + json.dumps(out["fit"]))
+
+    # a routed daemon that hot-reloads it, then serves fresh queries
+    qlog = scratch / "qlog_learned.jsonl"
+    daemon = ServeDaemon(idx, ladder=DEFAULT_LADDER, route=True,
+                         kernel="fused", batch_size=batch, metrics_port=0,
+                         predictor_dir=pdir, qlog=str(qlog), device=dev)
+    t0 = time.perf_counter()
+    port = daemon.start()
+    warm_s = time.perf_counter() - t0
+    batches = [np.ascontiguousarray(fresh_q[i * batch:(i + 1) * batch])
+               for i in range(n_req)]
+    fracs, lat, res = [], [], []
+    try:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/reload",
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = json.loads(r.read())
+        router = daemon.router
+        require(body.get("status") == "ok", f"POST /reload: {body}")
+        info = body["result"]
+        want_frac = min(max(pred.calibration["hard_frac"], router.min_frac),
+                        router.max_frac)
+        require(info["version"] == 1 and router.predictor_version == 1,
+                f"reloaded predictor version {info['version']}, "
+                f"router {router.predictor_version}")
+        require(info["jit_cache_growth"] == 0,
+                f"reload grew the compile cache by {info['jit_cache_growth']}")
+        require(router.hard_frac == want_frac,
+                f"hard_frac {router.hard_frac} != calibrated {want_frac}")
+        fracs.append(router.hard_frac)
+        for q in batches:
+            t0 = time.perf_counter()
+            res.append(daemon.search(q, timeout=600))
+            lat.append(time.perf_counter() - t0)
+            fracs.append(router.hard_frac)
+    finally:
+        daemon.stop()
+    recs = batch_records(read_log(str(qlog)))
+    require(len(recs) == n_req, f"learned daemon logged {len(recs)} batches")
+    require(all(r["route"]["predictor_version"] == 1 for r in recs),
+            "a served batch was not routed by predictor v1")
+    sides = check_routed(torch, np, idx, router, daemon.base_params, batches,
+                         res, recs, dev)
+    n_q = n_req * batch
+    out["serve_learned"] = {
+        "warmup_s": warm_s, "reload": info,
+        "latency_p50_s": float(np.quantile(lat, 0.5)),
+        "latency_p99_s": float(np.quantile(lat, 0.99)),
+        "qps": n_q / sum(lat), "latency_s": lat,
+        "hard_frac_path": fracs, "hard_queries": sides,
+        "formula": {k: formula[k] for k in
+                    ("latency_p50_s", "latency_p99_s", "qps",
+                     "hard_frac_path", "hard_queries")},
+    }
+    log("feedback serve (learned beside formula): " + json.dumps(
+        {k: v for k, v in out["serve_learned"].items() if k != "latency_s"}))
+
+    # index persistence: save, load on the card, the same bits
+    path = scratch / "index"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.save(str(path))
+    t_save = time.perf_counter() - t0
+    n_bytes = sum(f.stat().st_size for f in path.iterdir())
+    t0 = time.perf_counter()
+    loaded = GateIndex.load(str(path), device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    qd = torch.as_tensor(eval_q, device=dev)
+    for kernel in ("fused", "fused_q8"):
+        sp = SearchParams(k=10, beam_width=64, max_hops=256, kernel=kernel,
+                          rerank_mult=4)
+        a = idx.search(qd, params=sp, telemetry_sink=None, device=dev)
+        b = loaded.search(qd, params=sp, telemetry_sink=None, device=dev)
+        for f in ("ids", "dists", "hops", "dist_evals"):
+            require(bool(torch.equal(getattr(a, f), getattr(b, f))),
+                    f"reloaded index: {kernel} {f} differ from the original's")
+    del loaded, a, b
+    shutil.rmtree(scratch)
+    out["persist"] = {"bytes": n_bytes, "save_s": t_save, "load_s": t_load,
+                      "queries": len(eval_q),
+                      "bit_equal": ["fused", "fused_q8"]}
+    log("feedback persist: " + json.dumps(out["persist"]))
+
+    # beam_search_single against the rows of one batched search
+    dev_idx = idx._device(dev)
+    q8 = torch.as_tensor(np.ascontiguousarray(eval_q[:n_single]), device=dev)
+    entries = idx.select_entries(q8, device=dev)
+    sp = SearchParams(k=64, beam_width=64, max_hops=256, kernel="fused")
+    both = S.batched_search(dev_idx["db"], dev_idx["neighbors"], q8, entries,
+                            sp, device=dev)
+    with record_calls(S, "gather_rows_dist") as calls:
+        for i in range(n_single):
+            one = S.beam_search_single(
+                dev_idx["db"], dev_idx["neighbors"], q8[i], entries[i],
+                beam_width=64, max_hops=256, kernel="fused", device=dev)
+            for f, got in zip(("ids", "dists", "hops", "dist_evals"), one):
+                require(bool(torch.equal(got, getattr(both, f)[i])),
+                        f"beam_search_single {f} differs from batched row {i}")
+    out["single"] = {"queries": n_single, "k1_calls": len(calls)}
+    out["single_calls"] = calls
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def single_query_k1(torch, np, calls, dev, check_every: int = 10) -> dict:
+    """K1 at (1, R), the shape ``beam_search_single`` launches: each
+    recorded call replayed under CUDA events (median), the plain version
+    beside it, every ``check_every``-th call held against it, and the bound
+    counted from each call's own ids."""
+    from repro_torch.kernels import gather_rows_dist, ref
+
+    R = max(ids.shape[1] for ids, _ in calls)
+    hop = [i for i, (ids, _) in enumerate(calls) if ids.shape[1] == R]
+    require(len(hop) > 0 and all(calls[i][0].shape[0] == 1 for i in hop),
+            "beam_search_single's hop calls are not (1, R)")
+    width = calls[0][1][0].shape[1]
+    err = 0.0
+    for i in hop[::check_every]:
+        ids, args = calls[i]
+        err = max(err, hold(torch, np, f"K1 (1, {R}) call {i}",
+                            gather_rows_dist(ids, *args),
+                            ref.gather_rows_dist_ref(ids, *args), ids))
+    t = cuda_times(torch, lambda j: gather_rows_dist(calls[hop[j]][0],
+                                                     *calls[hop[j]][1]),
+                   len(hop))
+    tp = cuda_times(torch, lambda j: ref.gather_rows_dist_ref(
+        calls[hop[j]][0], *calls[hop[j]][1]), len(hop))
+    bounds = [hop_bound(torch, calls[i][0], 4 * width, 4 * width, width)
+              for i in hop]
+    return {"shape": [1, R], "calls": len(hop), "ms": statistics.median(t),
+            "plain_ms": statistics.median(tp),
+            "bound_ms": statistics.median(b["bound_ms"] for b in bounds),
+            "bound_by": statistics.mode(b["bound_by"] for b in bounds),
+            "max_abs_err": err,
+            "valid_slots_per_call": _spread([b["valid_slots"] for b in bounds])}
 
 
 CSRC = "src/repro_torch/csrc/"
@@ -1026,12 +1251,15 @@ def _at_shape(rec: dict) -> dict:
     return {k: rec[k] for k in SHAPE_KEYS if k in rec}
 
 
-def kernels_line(kres, api, hop, launches, serve_launches) -> list:
+def kernels_line(kres, api, hop, launches, serve_launches,
+                 feedback_launches, single) -> list:
     """One entry per kernel for the line before the last: K1 and K2 at the
     10,000-query search's own calls (hop phase) with their fixed (1024, 32)
-    rows beside them; K3 at the search's shape with the serve request's
-    beside it; K4 and K5 at bench_kernels.py's shapes with the composed
-    top-10's beside them; K6 at bench_kernels.py's."""
+    rows beside them, and K1 at the single-query search's (1, R) calls
+    (``single``); K3 at the search's shape with the serve request's beside
+    it; K4 and K5 at bench_kernels.py's shapes with the composed top-10's
+    beside them; K6 at bench_kernels.py's.  K1-K3 count their launches on
+    the search, serve and feedback paths."""
     hop_of = {"gather_rows_dist": "fused_l2", "gather_rows_dist_q8": "fused_q8_l2"}
     comp = api["composed_top10"]
     line = []
@@ -1045,11 +1273,15 @@ def kernels_line(kres, api, hop, launches, serve_launches) -> list:
                         "bound_by": h["bound_by"]}
             err = max([h["kernel"]["max_abs_err"]]
                       + [v["max_abs_err"] for v in fixed.values()])
-            by_path = {"search": launches[name], "serve": serve_launches[name]}
-        elif name in kres:  # K3: the search and serve paths
+            if name == "gather_rows_dist":
+                err = max(err, single["max_abs_err"])
+            by_path = {"search": launches[name], "serve": serve_launches[name],
+                       "feedback": feedback_launches[name]}
+        elif name in kres:  # K3: the search, serve and feedback paths
             main_rec = kres[name]["search"]
             err = max(v["max_abs_err"] for v in kres[name].values())
-            by_path = {"search": launches[name], "serve": serve_launches[name]}
+            by_path = {"search": launches[name], "serve": serve_launches[name],
+                       "feedback": feedback_launches[name]}
         else:             # K4-K6: the kernel API path
             main_rec = api[name]
             err = main_rec["max_abs_err"]
@@ -1069,6 +1301,10 @@ def kernels_line(kres, api, hop, launches, serve_launches) -> list:
             entry["fixed_shape_1024x32"] = {
                 m: {k: fixed[m][k] for k in ("ms", "plain_ms", "bound_ms")}
                 for m in ("l2", "cosine")}
+            if name == "gather_rows_dist":
+                entry["single_query_shape"] = {
+                    k: single[k] for k in ("shape", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")}
             line.append(entry)
             continue
         entry.update(_at_shape(main_rec))
@@ -1129,7 +1365,9 @@ def main(argv=None) -> int:
 
     from repro_torch import GateConfig, GateIndex, SearchParams, exact_knn
     from repro_torch import kernels as K
-    from repro_torch.data.synthetic import make_database, train_eval_query_split
+    from repro_torch.data.synthetic import (
+        make_database, make_queries_in_dist, train_eval_query_split,
+    )
     from repro_torch.kernels import _build
 
     # 1. build every kernel
@@ -1258,7 +1496,24 @@ def main(argv=None) -> int:
         require(serve_launches[name] > 0,
                 f"kernel {name} was not launched on the serve path")
 
-    line = kernels_line(kres, api, hop, launches, serve_launches)
+    # 9. the feedback loop and index persistence; its own counts.  The
+    # learned daemon serves queries phase 8 did not: fresh ones from the
+    # eval queries' process (train_eval_query_split's eval seed is 4)
+    fresh_q = make_queries_in_dist(db, 16 * 1024, seed=104)
+    K.reset_launch_counts()
+    fb = feedback_phase(torch, np, idx, eval_q, fresh_q, dev,
+                        serve["routed"]["qlog_path"], serve["routed"])
+    fb_launches = K.launch_counts()
+    log("launches on the feedback path: " + json.dumps(fb_launches))
+    for name in ("gather_rows_dist", "gather_rows_dist_q8", "twotower_score"):
+        require(fb_launches[name] > 0,
+                f"kernel {name} was not launched on the feedback path")
+    single = single_query_k1(torch, np, fb.pop("single_calls"), dev)
+    log("K1 at the single-query shape: " + json.dumps(single))
+    log(f"phase 9: {fb['seconds']:.1f} s")
+
+    line = kernels_line(kres, api, hop, launches, serve_launches,
+                        fb_launches, single)
     record = {
         "card": smi, "n": args.n, "queries": args.queries,
         "timing_floor_ms": floor_ms,
@@ -1272,6 +1527,8 @@ def main(argv=None) -> int:
         "launches": launches, "profile_fused_l2": prof,
         "profile_fused_q8_l2": prof_q8, "hop": hop, "api": api,
         "serve": serve, "search_on_baseline_k3": on_base,
+        "feedback": fb, "feedback_launches": fb_launches,
+        "k1_single_query": single,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

@@ -1,0 +1,4 @@
+"""Checkpoints (counterpart of ``repro.ckpt``): ``CheckpointManager``."""
+from repro_torch.ckpt.checkpoint import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -18,9 +18,19 @@ Search (online):
 ``build_report`` holds each stage's seconds (``t_nsg`` and the NSG's own
 ``nsg_t_<stage>`` parts, ``t_hubs``, ``t_topo``, ``t_samples``, ``t_train``,
 ``t_nav``).
+
+Persistence: ``save(path)`` writes a directory of ``arrays.npz`` and
+``manifest.json``; ``load(path)`` reads it, or a pickle written by
+``repro``'s ``GateIndex.save``.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+import pickle
+import shutil
+import tempfile
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -65,6 +75,10 @@ from repro_torch.obs.trace import span
 # "telemetry_sink not passed" marker: the default sink is registry_sink,
 # but an explicit None means "no side effects"
 _UNSET = object()
+
+# the on-disk format of GateIndex.save
+INDEX_FORMAT = "repro_torch.GateIndex"
+INDEX_FORMAT_VERSION = 1
 
 
 @dataclass(frozen=True)
@@ -658,3 +672,142 @@ class GateIndex:
             elif telemetry_sink is not None:
                 telemetry_sink(out[1], params=params, where=where)
         return out
+
+    # ------------------------------------------------------------ persistence
+    def save(self, path: str) -> None:
+        """Write the index to the directory ``path``: ``arrays.npz`` (every
+        array, uncompressed) and ``manifest.json`` (format version,
+        ``GateConfig``, ``TwoTowerConfig``, ``build_report``, ``enter_id``,
+        the nav graph's start, and each array's shape and dtype).  The
+        directory is written under a temporary name beside ``path`` and
+        renamed, so a crash leaves no half-written index."""
+        arrays = {
+            "db": np.asarray(self.db),
+            "neighbors": np.asarray(self.neighbors),
+            "hubs/ids": np.asarray(self.hubs.ids),
+            "hubs/assign": np.asarray(self.hubs.assign),
+            "hubs/centroids": np.asarray(self.hubs.centroids),
+            "nav/neighbors": np.asarray(self.nav.neighbors),
+            "nav/reps": np.asarray(self.nav.reps),
+        }
+        for name, t in self.tower_params.as_dict().items():
+            arrays[f"tower/{name}"] = t.detach().cpu().numpy()
+        if self.quant is not None:
+            for name, a in zip(quantlib.QuantizedDb._fields, self.quant):
+                arrays[f"quant/{name}"] = (a.cpu().numpy()
+                                           if isinstance(a, torch.Tensor)
+                                           else np.asarray(a))
+        manifest = {
+            "format": INDEX_FORMAT,
+            "version": INDEX_FORMAT_VERSION,
+            "enter_id": int(self.enter_id),
+            "nav_start": int(self.nav.start),
+            "gcfg": dataclasses.asdict(self.gcfg),
+            "tower_cfg": dataclasses.asdict(self.tower_cfg),
+            "build_report": self.build_report,
+            "arrays": {k: {"shape": list(a.shape), "dtype": str(a.dtype)}
+                       for k, a in arrays.items()},
+        }
+        path = os.path.abspath(path)
+        parent, name = os.path.split(path)
+        os.makedirs(parent, exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix=f".{name}.", dir=parent)
+        try:
+            np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f, default=_json_default)
+            if os.path.exists(path):
+                shutil.rmtree(path)
+            os.rename(tmp, path)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+
+    @classmethod
+    def load(cls, path: str, *, device="cuda") -> "GateIndex":
+        """Read an index written by ``save`` (a directory), or a pickle file
+        written by ``repro``'s ``GateIndex.save``, and place it on
+        ``device``.  The pickle is read by a restricted unpickler that maps
+        ``repro``'s ``GateConfig`` / ``TwoTowerConfig`` to the port's
+        classes, allows numpy's array reconstructors and refuses every other
+        class (``pickle.UnpicklingError``); ``repro`` is never imported."""
+        from repro_torch.convert import index_from_numpy
+
+        if os.path.isdir(path):
+            state = _read_index_dir(path)
+        else:
+            with open(path, "rb") as f:
+                state = _ReferenceUnpickler(f).load()
+            for key in ("gcfg", "tower_cfg"):
+                state[key] = dataclasses.asdict(state[key])
+        return index_from_numpy(state, device=device)
+
+
+def _json_default(x):
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    raise TypeError(f"{type(x).__name__} is not JSON serializable")
+
+
+def _read_index_dir(path: str) -> dict:
+    """The state dict ``convert.index_from_numpy`` takes, from a directory
+    ``GateIndex.save`` wrote."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    if (manifest.get("format") != INDEX_FORMAT
+            or manifest.get("version") != INDEX_FORMAT_VERSION):
+        raise ValueError(
+            f"{path}: not a {INDEX_FORMAT} v{INDEX_FORMAT_VERSION} index "
+            f"(format={manifest.get('format')!r}, "
+            f"version={manifest.get('version')!r})")
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        a = {k: z[k] for k in z.files}
+    for k, spec in manifest["arrays"].items():
+        if k not in a or list(a[k].shape) != spec["shape"] \
+                or str(a[k].dtype) != spec["dtype"]:
+            raise ValueError(f"{path}: array {k!r} is missing or is not "
+                             f"{spec['dtype']} {spec['shape']}")
+    quant = (tuple(a[f"quant/{n}"] for n in quantlib.QuantizedDb._fields)
+             if "quant/codes" in a else None)
+    return {
+        "db": a["db"], "neighbors": a["neighbors"],
+        "enter_id": manifest["enter_id"],
+        "hubs": (a["hubs/ids"], a["hubs/assign"], a["hubs/centroids"]),
+        "tower_params": {k[len("tower/"):]: v for k, v in a.items()
+                         if k.startswith("tower/")},
+        "tower_cfg": manifest["tower_cfg"], "gcfg": manifest["gcfg"],
+        "nav": (a["nav/neighbors"], a["nav/reps"], manifest["nav_start"]),
+        "build_report": manifest["build_report"],
+        "quant": quant,
+    }
+
+
+class _ReferenceUnpickler(pickle.Unpickler):
+    """Unpickles ``repro``'s saved index: its two config classes become the
+    port's, numpy arrays load as numpy arrays, and any other class is
+    refused."""
+
+    _CONFIGS = {
+        ("repro.core.gate_index", "GateConfig"): GateConfig,
+        ("repro.core.twotower", "TwoTowerConfig"): TwoTowerConfig,
+    }
+    # an array pickles through _reconstruct, or _frombuffer under protocol
+    # 5; numpy 2 names the module numpy._core, numpy 1 numpy.core
+    _NUMPY = {
+        ("numpy", "ndarray"), ("numpy", "dtype"),
+        ("numpy._core.multiarray", "_reconstruct"),
+        ("numpy.core.multiarray", "_reconstruct"),
+        ("numpy._core.numeric", "_frombuffer"),
+        ("numpy.core.numeric", "_frombuffer"),
+    }
+
+    def find_class(self, module, name):
+        if (module, name) in self._CONFIGS:
+            return self._CONFIGS[(module, name)]
+        if (module, name) in self._NUMPY:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"GateIndex.load: refusing to unpickle {module}.{name}: only "
+            "repro's GateConfig / TwoTowerConfig and numpy arrays are allowed")

@@ -143,3 +143,9 @@ def hbkm(
     )
     centers /= np.maximum(counts, 1)[:, None]
     return assign_out.astype(np.int32), centers.astype(np.float32)
+
+
+def cluster_size_variance(assign: np.ndarray, n_c: int) -> float:
+    """The paper's balance objective: Σ (|C_i| − n/n_c)²."""
+    counts = np.bincount(np.asarray(assign), minlength=n_c).astype(np.float64)
+    return float(np.sum((counts - len(assign) / n_c) ** 2))

@@ -89,8 +89,10 @@ def knn_graph(db, k: int, q_chunk: int = 2048, device="cuda") -> np.ndarray:
     return ids
 
 
-def medoid(db: np.ndarray, device="cuda") -> int:
-    """Approximate medoid: point closest to the dataset mean."""
+def medoid(db: np.ndarray, sample: int = 4096, seed: int = 0, *,
+           device="cuda") -> int:
+    """Approximate medoid: point closest to the dataset mean.  ``sample``
+    and ``seed`` are accepted and ignored, as in ``repro``."""
     mean = np.asarray(db).mean(axis=0, keepdims=True)
     ids, _ = exact_knn(mean.astype(db.dtype), db, 1, device=device)
     return int(ids[0, 0])

@@ -97,3 +97,15 @@ def memory_bytes(qdb: QuantizedDb) -> int:
         else np.asarray(a).nbytes
         for a in qdb
     ))
+
+
+def quant_config(qdb: QuantizedDb) -> dict:
+    """Schema fragment recorded into benchmark results and build reports."""
+    return {
+        "block": qdb.block,
+        "n_blocks": qdb.n_blocks,
+        "bytes": memory_bytes(qdb),
+        "bytes_per_row": (
+            qdb.codes.shape[1] + 8 * qdb.n_blocks + 4  # codes + scale/zero + inv_norm
+        ),
+    }

@@ -1,5 +1,5 @@
 """Serving (counterpart of ``repro.serve``): ``ServeDaemon``.  The RAG
-pipeline and the LM engine are not ported yet (ROADMAP A7)."""
+pipeline and the LM engine are not ported yet (ROADMAP A6)."""
 
 __all__ = ["PendingResult", "SearchRequest", "ServeDaemon"]
 

@@ -36,8 +36,10 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core.gate_index import GateIndex
+from repro_torch.feedback.fit import load_predictor
 from repro_torch.feedback.qlog import QueryLog, ShadowOversearch
 from repro_torch.graphs.params import SearchParams
+from repro_torch.graphs.search import search_jit_cache_size
 from repro_torch.obs import (
     AdaptiveController,
     DEFAULT_LADDER,
@@ -119,11 +121,7 @@ class ServeDaemon:
         if pipeline is not None:
             raise NotImplementedError(
                 "ServeDaemon(pipeline=...): the RAG pipeline and the LM stack "
-                "are not ported yet (ROADMAP A7)")
-        if predictor_dir is not None:
-            raise NotImplementedError(
-                "ServeDaemon(predictor_dir=...): predictor hot-reload needs "
-                "the hardness-predictor fit, not ported yet (ROADMAP A6)")
+                "are not ported yet (ROADMAP A6)")
         self.index = index
         self.device = device
         self.ladder = tuple(ladder)
@@ -153,7 +151,8 @@ class ServeDaemon:
             if route
             else None
         )
-        # feedback loop: query-log capture + shadow labeling
+        # feedback loop: query-log capture + shadow labeling + predictor
+        # hot-reload; all host-side, outside the search
         self.qlog = QueryLog(qlog) if isinstance(qlog, str) else qlog
         self.shadow = (
             ShadowOversearch(index, self.router, every=shadow_every,
@@ -161,6 +160,7 @@ class ServeDaemon:
             if shadow_every > 0 and self.router is not None
             else None
         )
+        self.predictor_dir = predictor_dir
         self.window_log_every = max(1, window_log_every)
         self._routed_sink = (
             chain_sinks(registry_sink, self.qlog.sink)
@@ -168,8 +168,11 @@ class ServeDaemon:
             else registry_sink
         )
         self.exporter = (
-            MetricsExporter(window=self.window, host=metrics_host,
-                            port=metrics_port)
+            MetricsExporter(
+                window=self.window, host=metrics_host, port=metrics_port,
+                reload_hook=(self.reload_predictor
+                             if predictor_dir is not None else None),
+            )
             if metrics_port is not None
             else None
         )
@@ -216,11 +219,35 @@ class ServeDaemon:
 
     # ------------------------------------------------------------ hot-reload
     def reload_predictor(self):
-        """The POST /reload hook in ``repro``: it needs the hardness
-        predictor fit, which is not ported yet."""
-        raise NotImplementedError(
-            "ServeDaemon.reload_predictor: the hardness-predictor fit "
-            "(feedback/fit.py) is not ported yet (ROADMAP A6)")
+        """Load the latest predictor artifact from ``predictor_dir`` and
+        swap it into the router atomically (the POST /reload hook).
+
+        The predictor scores on the host, outside the search, so the swap
+        compiles and loads nothing: ``jit_cache_growth``, the change of
+        ``search_jit_cache_size()`` across the swap, must be 0.
+        """
+        if self.predictor_dir is None:
+            raise RuntimeError("daemon has no predictor_dir configured")
+        if self.router is None:
+            raise RuntimeError("predictor reload requires route=True")
+        cache0 = search_jit_cache_size()
+        pred = load_predictor(self.predictor_dir)
+        self.router.load_predictor(pred)
+        growth = search_jit_cache_size() - cache0
+        if self._reg.enabled:
+            self._reg.counter(
+                "feedback.reloads", "predictor hot-reloads applied"
+            ).inc()
+            self._reg.gauge(
+                "feedback.predictor_version",
+                "version of the served hardness predictor",
+            ).set(float(pred.version))
+        return {
+            "version": pred.version,
+            "model": pred.model,
+            "hard_frac": self.router.hard_frac,
+            "jit_cache_growth": growth,
+        }
 
     def __enter__(self) -> "ServeDaemon":
         self.start()
@@ -368,6 +395,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--shadow-every", type=int, default=0,
                     help="shadow-oversearch every Nth batch for "
                          "needed-wide-beam labels (0 = off)")
+    ap.add_argument("--predictor-dir", default=None,
+                    help="hardness-predictor artifact dir; enables "
+                         "POST /reload and --reload-at")
+    ap.add_argument("--reload-at", type=int, default=0,
+                    help="hot-reload the predictor after this many batches "
+                         "(0 = only via POST /reload)")
     ap.add_argument("--device", default="cuda",
                     help="where the index is built and searched")
     ap.add_argument("--seed", type=int, default=0)
@@ -388,7 +421,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         index, adaptive=args.adaptive, batch_size=args.batch, k=args.k,
         kernel=args.kernel, kernel_interpret=args.kernel_interpret,
         route=args.route, metrics_port=args.metrics_port,
-        qlog=args.qlog, shadow_every=args.shadow_every, device=args.device,
+        qlog=args.qlog, shadow_every=args.shadow_every,
+        predictor_dir=args.predictor_dir, device=args.device,
     )
 
     # graceful shutdown on SIGTERM too: the handler raises so the finally
@@ -421,6 +455,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 f"mean_hops={summarize(tele)['mean_hops']:.1f}",
                 flush=True,
             )
+            if args.reload_at and (i + 1) == args.reload_at:
+                info = daemon.reload_predictor()
+                print(f"[daemon] predictor reloaded: v{info['version']} "
+                      f"({info['model']}) hard_frac="
+                      f"{info['hard_frac']:.2f}", flush=True)
+                print("[daemon] jit cache growth after reload: "
+                      f"{info['jit_cache_growth']}", flush=True)
         if args.serve_seconds > 0:
             print(f"[daemon] serving /metrics for {args.serve_seconds:.0f}s "
                   f"(Ctrl-C to exit)", flush=True)

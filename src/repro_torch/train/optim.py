@@ -50,7 +50,7 @@ def adamw(
     if warmup or total_steps:
         raise NotImplementedError(
             "adamw(warmup=, total_steps=): the learning-rate schedule waits "
-            "for the training slice of the port (ROADMAP A7)"
+            "for the deferred build pieces of the port (ROADMAP A4)"
         )
 
     def init(params: Params):

@@ -29,7 +29,9 @@ from repro.graphs import knn as j_knn
 from repro.graphs import nsg as j_nsg
 from repro.train.optim import adamw as j_adamw
 
-from repro_torch.core import hbkm as t_hbkm
+# the package exports the function hbkm, which shadows its module
+t_hbkm = importlib.import_module("repro_torch.core.hbkm")
+
 from repro_torch.core import navgraph as t_nav
 from repro_torch.core import samples as t_samples
 from repro_torch.core import twotower as t_tt
@@ -256,3 +258,26 @@ def test_nav_graph_exact_and_descend_equal():
                                instrument=True)
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
         np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+
+
+def test_medoid_takes_the_reference_signature(small_db):
+    """``sample`` and ``seed`` are accepted and ignored, as in ``repro``;
+    ``device`` is keyword-only, so a positional 4096 is ``sample``."""
+    db = small_db[0][:600]
+    want = j_knn.medoid(db)
+    assert t_knn.medoid(db, seed=0, device=CPU) == want
+    assert t_knn.medoid(db, 4096, device=CPU) == want
+    assert t_knn.medoid(db, 17, 3, device=CPU) == want
+    with pytest.raises(TypeError):
+        t_knn.medoid(db, 4096, 0, CPU)
+
+
+@pytest.mark.parametrize("n_c", [1, 7, 64])
+def test_cluster_size_variance_equals_reference(small_db, n_c):
+    from repro.core.hbkm import cluster_size_variance as j_var
+
+    rng = np.random.default_rng(n_c)
+    for assign in (rng.integers(0, n_c, 1000).astype(np.int32),
+                   np.zeros(10, np.int32),
+                   t_hbkm.hbkm(small_db[0][:500], n_c, device=CPU)[0]):
+        assert t_hbkm.cluster_size_variance(assign, n_c) == j_var(assign, n_c)

@@ -2,6 +2,10 @@
 ``chip_smoke.py`` imports ``jax`` or ``repro``, and the entry points run on
 the card unless the caller asks for the CPU."""
 import ast
+import os
+import subprocess
+import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -70,6 +74,27 @@ def test_entry_points_default_to_the_card():
             daemon.start()
     finally:
         daemon.stop()
+    # the feedback fit, index load and a checkpoint restore onto a device
+    # go to the card by default too
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.feedback.fit import fit_from_records
+
+    recs = [{"kind": "batch", "seq": 0, "batch": 2,
+             "signals": {"features": [[0.0, 1.0, 2.0], [1.0, 0.0, 2.0]],
+                         "hardness": [0.0, 1.0]},
+             "route": {"easy_idx": [0], "hard_idx": [1]},
+             "needed_wide": [False, True]}]
+    with pytest.raises((AssertionError, RuntimeError)):
+        fit_from_records(recs, epochs=2)
+    with tempfile.TemporaryDirectory() as d:
+        idx.save(os.path.join(d, "idx"))
+        with pytest.raises((AssertionError, RuntimeError)):
+            GateIndex.load(os.path.join(d, "idx"))
+        mgr = CheckpointManager(os.path.join(d, "ckpt"))
+        mgr.save(1, {"w": np.zeros(3, np.float32)}, blocking=True)
+        assert isinstance(mgr.restore()[0]["w"], np.ndarray)  # host by default
+        with pytest.raises((AssertionError, RuntimeError)):
+            mgr.restore(device="cuda")
     # the kernel API's cuda mode never runs the plain version on the CPU
     for call in (lambda: ops.l2dist(tq, tq, mode="cuda"),
                  lambda: ops.topk_min(tq, 2, mode="cuda"),
@@ -79,3 +104,42 @@ def test_entry_points_default_to_the_card():
                                          mode="cuda")):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
+
+
+def test_public_surface_resolves_without_jax():
+    """Every name of ``repro_torch.__all__`` (``repro``'s export table less
+    the unported ``RagPipeline``) and of ``repro_torch.core`` /
+    ``repro_torch.graphs`` resolves, in a fresh interpreter that has loaded
+    neither ``jax`` nor ``repro`` afterwards."""
+    code = (
+        "import sys, repro_torch, repro_torch.core as c, repro_torch.graphs as g\n"
+        "for m in (repro_torch, c, g):\n"
+        "    for n in m.__all__:\n"
+        "        assert getattr(m, n) is not None, n\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print(len(repro_torch.__all__))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import repro_torch
+
+    want = {
+        "AdaptiveController", "DEFAULT_LADDER", "LadderRung", "VotePolicy",
+        "HardnessRouter", "RouteReport", "route_buckets", "RollingWindow",
+        "MetricsExporter", "MetricsRegistry", "get_registry", "registry_sink",
+        "SearchRequest", "ServeDaemon", "QueryLog", "ShadowOversearch",
+        "NSG", "QuantizedDb", "quantize_db", "resolve_search_params",
+        "search_jit_cache_size", "HardnessPredictor", "load_predictor",
+        "GateConfig", "GateIndex", "SearchParams", "SearchResult",
+        "SearchTelemetry", "batched_search", "build_nsg", "summarize",
+        "exact_knn", "recall_at_k",
+    }
+    assert set(repro_torch.__all__) == want
+    assert int(out.stdout.strip()) == len(want)
+    from repro_torch.core import cluster_size_variance, hbkm  # noqa: F401
+    from repro_torch.graphs import search_jit_cache_size  # noqa: F401
+    with pytest.raises(AttributeError):
+        repro_torch.RagPipeline

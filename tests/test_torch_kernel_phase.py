@@ -94,7 +94,10 @@ def test_kernel_and_api_phases_rehearsal(rehearsal, with_baseline):
                    "bound_by": "bytes", "B": 90, "R": 247}
            for label in ("fused_l2", "fused_q8_l2")}
     counts = dict.fromkeys(chip_smoke.SOURCES, 3)
-    line = chip_smoke.kernels_line(kres, api, hop, counts, counts)
+    single = {"shape": [1, 247], "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.1,
+              "bound_by": "bytes", "max_abs_err": 0.0}
+    line = chip_smoke.kernels_line(kres, api, hop, counts, counts, counts,
+                                   single)
     json.dumps({"kernels": line})
     by = {e["name"]: e for e in line}
     assert list(by) == list(chip_smoke.SOURCES)
@@ -104,7 +107,9 @@ def test_kernel_and_api_phases_rehearsal(rehearsal, with_baseline):
         assert keys <= set(e)
     assert by["twotower_score"]["shape"] == [90, 64, 128]
     assert by["twotower_score"]["serve_shape"]["shape"] == [48, 64, 128]
-    assert by["twotower_score"]["launches"] == 6
+    assert by["twotower_score"]["launches"] == 9  # search, serve, feedback
+    assert by["twotower_score"]["launches_by_path"]["feedback"] == 3
+    assert set(by["topk_min"]["launches_by_path"]) == {"api"}
     assert by["l2dist"]["composed_shape"]["shape"] == [32, 1500, 128]
     assert by["topk_min"]["composed_shape"]["shape"] == [32, 1500, 10]
     assert by["topk_min"]["composed_shape"]["library_ms"] is not None
@@ -113,6 +118,8 @@ def test_kernel_and_api_phases_rehearsal(rehearsal, with_baseline):
         assert "ms_net" in e and ("baseline_ms_net" in e) == with_baseline
         assert e["read_ms"] is not None
     assert by["gather_rows_dist"]["shape"] == [90, 247]
+    assert by["gather_rows_dist"]["single_query_shape"]["shape"] == [1, 247]
+    assert "single_query_shape" not in by["gather_rows_dist_q8"]
 
 
 def test_pair_ms_times_in_turns(monkeypatch):

@@ -51,3 +51,12 @@ def test_quantize_other_block_and_dequantize_tensor():
     assert isinstance(got, torch.Tensor)
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(want, np.asarray(jq.dequantize(jq.quantize_db(db, 32), 70)))
+
+
+@pytest.mark.parametrize("d,block", [(37, 128), (300, 128), (64, 32)])
+def test_quant_config_equals_reference(d, block):
+    db = np.random.default_rng(d).standard_normal((12, d)).astype(np.float32)
+    want = jq.quant_config(jq.quantize_db(db, block=block))
+    assert tq.quant_config(tq.quantize_db(db, block=block)) == want
+    # the schema fragment does not depend on where the codebook lives
+    assert tq.quant_config(tq.quantize_db(db, block=block).to("cpu")) == want

@@ -154,3 +154,158 @@ def test_frozen_queries_keep_their_state():
         assert torch.equal(one.dists[0], both.dists[i])
         for f in _INT_TELE:
             assert getattr(t1, f)[0] == getattr(tb, f)[i], f
+
+
+# ------------------------------------------- the rest of graphs/search.py
+# beam_search_single and beam_search_fixed search one query; the reference
+# is jitted once per case (its knobs static) and called per query.
+# Tolerances: ids, hops, evals and integer telemetry equal; distances and
+# float telemetry within rtol=1e-5, atol=1e-6 (the while-loop search, as
+# above) or atol=1e-5 (beam_search_fixed's dot form ‖v‖² − 2v·q + ‖q‖²,
+# whose terms are ~d before they cancel).
+
+def _jit_single(fn, **static):
+    import functools
+
+    import jax
+
+    return jax.jit(functools.partial(fn, **static))
+
+
+def _assert_scalar_tele(tt, jt, atol):
+    for f in _INT_TELE:
+        assert int(getattr(tt, f)) == int(getattr(jt, f)), f
+    for f in _FLOAT_TELE:
+        np.testing.assert_allclose(float(getattr(tt, f)),
+                                   float(getattr(jt, f)), rtol=RTOL,
+                                   atol=atol, err_msg=f)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("kernel", ["xla", "fused", "fused_q8"])
+@pytest.mark.parametrize("instrument", [False, True])
+def test_beam_search_single_parity(metric, kernel, instrument):
+    from repro.graphs.search import beam_search_single as j_single
+
+    from repro_torch.graphs.search import beam_search_single
+
+    db, nbrs, q, entries, _ = _knn_problem(n=400, d=64, R=10, n_q=16)
+    kw = dict(beam_width=16, max_hops=48, visited_ring=16,
+              instrument=instrument, metric=metric, kernel=kernel,
+              rerank=10 if kernel == "fused_q8" else 0)
+    quant = quantize_db(db) if kernel == "fused_q8" else None
+    jquant = (JQuant(*(jnp.asarray(a) for a in j_quantize(db)))
+              if kernel == "fused_q8" else None)
+    jfn = _jit_single(j_single, kernel_interpret=True, **kw)
+    for i in (0, 3, 9):
+        a = jfn(jnp.asarray(db), jnp.asarray(nbrs), jnp.asarray(q[i]),
+                jnp.asarray(entries[i]), quant=jquant)
+        b = beam_search_single(db, nbrs, q[i], entries[i], quant=quant,
+                               device="cpu", **kw)
+        assert len(b) == len(a) == (5 if instrument else 4)
+        np.testing.assert_array_equal(b[0].numpy(), np.asarray(a[0]))
+        np.testing.assert_allclose(b[1].numpy(), np.asarray(a[1]),
+                                   rtol=RTOL, atol=ATOL)
+        assert b[2].shape == () and int(b[2]) == int(a[2])
+        assert int(b[3]) == int(a[3])
+        if instrument:
+            assert b[4].hops.shape == ()
+            _assert_scalar_tele(b[4], a[4], ATOL)
+
+
+def test_beam_search_single_is_a_batch_of_one():
+    """The port's single-query search is batched_search's loop: the same
+    ids, distances and hops as the matching rows of a batched search."""
+    from repro_torch.graphs.search import beam_search_single
+
+    db, nbrs, q, entries, _ = _knn_problem(n=400, d=64, R=10, n_q=8)
+    sp = SearchParams(k=16, beam_width=16, max_hops=48, kernel="fused")
+    both = batched_search(db, nbrs, q, entries, sp, device="cpu")
+    for i in range(len(q)):
+        ids, d, hops, evals = beam_search_single(
+            db, nbrs, q[i], entries[i], beam_width=16, max_hops=48,
+            kernel="fused", device="cpu")
+        assert torch.equal(ids, both.ids[i]) and torch.equal(d, both.dists[i])
+        assert hops == both.hops[i] and evals == both.dist_evals[i]
+
+
+@pytest.mark.parametrize("expand_width,visited_ring", [(1, 16), (2, 15)])
+@pytest.mark.parametrize("instrument", [False, True])
+@pytest.mark.parametrize("norms", [False, True])
+def test_beam_search_fixed_parity(expand_width, visited_ring, instrument,
+                                  norms):
+    """Fixed trip count, E = 1 and a 2-wide wavefront; a ring of 15 makes
+    the E = 2 ring write reach the end, where ``dynamic_update_slice``
+    clamps its start."""
+    from repro.graphs.search import beam_search_fixed as j_fixed
+
+    from repro_torch.graphs.search import beam_search_fixed
+
+    db, nbrs, q, entries, _ = _knn_problem(n=400, d=64, R=10, n_q=16)
+    db_norms = (db * db).sum(axis=1) if norms else None
+    kw = dict(beam_width=16, num_hops=20, visited_ring=visited_ring,
+              expand_width=expand_width, instrument=instrument)
+    jfn = _jit_single(j_fixed, **kw)
+    for i in (1, 4, 12):
+        a = jfn(jnp.asarray(db), jnp.asarray(nbrs), jnp.asarray(q[i]),
+                jnp.asarray(entries[i]),
+                db_norms=None if db_norms is None else jnp.asarray(db_norms))
+        b = beam_search_fixed(db, nbrs, q[i], entries[i], db_norms=db_norms,
+                              device="cpu", **kw)
+        assert len(b) == len(a) == (4 if instrument else 3)
+        np.testing.assert_array_equal(b[0].numpy(), np.asarray(a[0]))
+        np.testing.assert_allclose(b[1].numpy(), np.asarray(a[1]),
+                                   rtol=RTOL, atol=1e-5)
+        assert int(b[2]) == int(a[2]) == 20 * expand_width
+        if instrument:
+            _assert_scalar_tele(b[3], a[3], 1e-5)
+            assert b[3].ring_evictions > 0  # the ring wrapped
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_greedy_descent_parity(metric):
+    """A walk over 64 nodes of out-degree 4 (-1 holes), from every 8th
+    node, with and without the hop count; max_hops 3 cuts some walks."""
+    import jax
+
+    from repro.graphs.search import greedy_descent as j_search
+
+    from repro_torch.graphs.search import greedy_descent
+
+    j_descent = jax.jit(j_search, static_argnums=(4, 5),
+                        static_argnames=("instrument",))
+
+    rng = np.random.default_rng(5)
+    vecs = rng.standard_normal((64, 16)).astype(np.float32)
+    nbrs = rng.integers(0, 64, (64, 4)).astype(np.int32)
+    nbrs[rng.random((64, 4)) < 0.15] = -1
+    nbrs[:, 0] = rng.integers(0, 64, 64)  # every node has a way out
+    qs = rng.standard_normal((4, 16)).astype(np.float32)
+    cut = 0
+    for q in qs:
+        for start in range(0, 64, 8):
+            for max_hops in (3, 32):
+                a_id, a_h = j_descent(jnp.asarray(vecs), jnp.asarray(nbrs),
+                                      jnp.asarray(q), jnp.int32(start),
+                                      max_hops, metric, instrument=True)
+                b_id, b_h = greedy_descent(vecs, nbrs, q, start, max_hops,
+                                           metric, instrument=True,
+                                           device="cpu")
+                assert int(b_id) == int(a_id) and int(b_h) == int(a_h)
+                cut += int(a_h) == max_hops
+                assert int(greedy_descent(vecs, nbrs, q, start, max_hops,
+                                          metric, device="cpu")) == int(a_id)
+    assert cut > 0
+
+
+def test_search_jit_cache_size_counts_loaded_kernel_libraries():
+    from repro_torch import search_jit_cache_size
+    from repro_torch.kernels import _build
+
+    db, nbrs, q, entries = (np.asarray(a) for a in _problem())
+    n0 = search_jit_cache_size()
+    assert n0 == len(_build._libs)
+    for kernel in ("xla", "fused"):  # CPU tensors load no library
+        batched_search(db, nbrs, q, entries, SearchParams(kernel=kernel),
+                       device="cpu")
+    assert search_jit_cache_size() == n0

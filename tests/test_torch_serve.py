@@ -443,10 +443,13 @@ def test_routed_daemon_writes_the_query_log(tmp_path, pair):
 
 
 def test_daemon_unported_parts_raise(pair):
+    """The RAG pipeline is not ported; the predictor reload is, and raises
+    where ``repro``'s does: without ``predictor_dir`` or without routing."""
     _, tidx = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         ServeDaemon(tidx, pipeline=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ServeDaemon(tidx, route=True, predictor_dir="/nonexistent", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(RuntimeError, match="no predictor_dir"):
         ServeDaemon(tidx, route=True, device="cpu").reload_predictor()
+    with pytest.raises(RuntimeError, match="requires route=True"):
+        ServeDaemon(tidx, predictor_dir="/nonexistent",
+                    device="cpu").reload_predictor()
