@@ -61,15 +61,43 @@ Run from the root of a checkout:
    eval queries required bit-equal to the original's; beam_search_single
    (fused) on 8 queries required equal to the rows of one batched search,
    and K1 at its (1, R) calls timed beside its plain version and bound.
+10. Ablation phase, on phase 4's graph: the paper's entry comparison (one
+   fused batched_search of the Q eval queries from GATE, medoid, random,
+   k-means-tree (branch 8, depth 2) and hash-probe (16 bits) entries;
+   recall@10, QPS, mean hops; the GATE and medoid rows must equal phase
+   5's); GateConfig(use_hbkm=False) built on the same graph beside the
+   default (build seconds, recall@10, QPS); GateConfig(hop_mode="bfs")
+   built on a fresh 5,000-row database beside the default build there,
+   while hop_counts (host BFS) is timed on 100 targets of the 1M graph in
+   a process of its own (read after phase 11) and projected to a 1M bfs
+   build; hbkm to 64 leaves in greedy and batch mode (seconds,
+   cluster-size variance).  Then greedy_assign held bit-equal to its plain
+   version on 20,000 rows (k = 8) and timed there and at the 1M root split
+   beside its bound.
+11. RAG phase: gemma-2b at its published width (weights drawn on the card,
+   seed 0, bf16 compute), a RagPipeline (k = 4, fused) over the index with
+   a 128-token block per row: finite logits, two greedy generations equal,
+   prefill(S+1) against prefill(S)+decode on a float64 copy (1e-6
+   relative) and on a float32 copy (each layer's decode against its
+   prefill on the same layer inputs, 1e-3 relative; the logits' difference
+   reported), blockwise attention against a naive softmax at one
+   request's first-layer shapes (1e-4); then a ServeDaemon(pipeline=) on
+   DEFAULT_LADDER serves 16 requests of 32 queries with 64-token prompts
+   (576-token contexts, 32 new tokens), each request's retrieved ids held
+   against a plain search at its rung; p50 / p99, retrieve / prefill /
+   decode seconds from the spans, tokens/s, resident weight bytes; one
+   more request under torch.profiler (device busy and idle share, kernels
+   launched).
 
-Phases 3, 5-6, 8 and 9 are each driven with the kernel launch counts set
+Phases 3, 5-6 and 8-11 are each driven with the kernel launch counts set
 to 0 just before and read just after: K4-K6 must launch in phase 3, K1-K3
-in phases 5-6, K1/K3 in phase 8 and K1-K3 in phase 9.  Every check that fails raises, so the
+in phases 5-6, K1/K3 in phase 8, K1-K3 in phase 9, K1, K3 and greedy_assign
+in phase 10, K1/K3 in phase 11.  Every check that fails raises, so the
 script exits non-zero and prints no result.  The last line is the JSON
 result object; the line before it is the card's name and power limit, and
 the one before that lists every kernel (K1 and K2 at the hop phase's
 10,000-query calls, K3 at both of its shapes, K4 and K5 at both of
-theirs).  ``--out FILE`` also writes the full record there as JSON.  Exits
+theirs, greedy_assign at its slice and root split).  ``--out FILE`` also writes the full record there as JSON.  Exits
 non-zero without a CUDA card or outside a checkout.
 """
 from __future__ import annotations
@@ -79,6 +107,7 @@ import contextlib
 import hashlib
 import importlib
 import json
+import multiprocessing
 import re
 import shutil
 import statistics
@@ -580,21 +609,18 @@ def search_phase(torch, idx, eval_q, gt, metric, kernels, baseline, dev):
     return rows
 
 
-def profile_search(torch, idx, eval_q, dev, wall_s: float, sp=None) -> dict:
-    """One search (default: ``fused`` l2, beam 64) under ``torch.profiler``:
-    device kernel time (summed over kernels; one stream, so they do not
-    overlap) against the unprofiled wall time of the same search, and the
-    kernels that take it."""
+def profile_call(torch, fn, wall_s: float) -> dict:
+    """``fn()`` under ``torch.profiler``: device kernel time (summed over
+    kernels; one stream, so they do not overlap) against ``wall_s``, the
+    unprofiled wall time of the same call, the kernels launched, and the
+    kernels that take the time.  Only device activity is recorded: the
+    host ops of a RAG request (tens of thousands) would take the profiler
+    longer to summarise than the request takes to run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import SearchParams
-
-    qd = torch.as_tensor(eval_q, device=dev)
-    if sp is None:
-        sp = SearchParams(k=10, beam_width=64, max_hops=256, kernel="fused")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        idx.search(qd, params=sp, telemetry_sink=None, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -604,10 +630,24 @@ def profile_search(torch, idx, eval_q, dev, wall_s: float, sp=None) -> dict:
         "device_busy_s": busy_s if kern else None,
         "wall_s": wall_s,
         "device_idle_share": (1.0 - busy_s / wall_s) if kern else None,
+        "kernel_launches": sum(e.count for e in kern),
         "top_kernels": [{"name": e.key[:80], "calls": e.count,
                          "device_ms": e.self_device_time_total * 1e-3}
                         for e in top],
     }
+
+
+def profile_search(torch, idx, eval_q, dev, wall_s: float, sp=None) -> dict:
+    """One search (default: ``fused`` l2, beam 64) under the profiler
+    (``profile_call``)."""
+    from repro_torch import SearchParams
+
+    qd = torch.as_tensor(eval_q, device=dev)
+    if sp is None:
+        sp = SearchParams(k=10, beam_width=64, max_hops=256, kernel="fused")
+    return profile_call(
+        torch, lambda: idx.search(qd, params=sp, telemetry_sink=None,
+                                  device=dev), wall_s)
 
 
 @contextlib.contextmanager
@@ -1230,18 +1270,520 @@ def single_query_k1(torch, np, calls, dev, check_every: int = 10) -> dict:
             "valid_slots_per_call": _spread([b["valid_slots"] for b in bounds])}
 
 
+def entry_rules(torch, np, idx, db, dev):
+    """The paper's five entry rules over one base graph, as
+    benchmarks/common.py::entry_strategies builds them: GATE, the medoid,
+    random, the k-means tree (branch 8, depth 2) and the hash probe over
+    the hubs (16 bits).  Returns ({name: queries -> (B, 1) ids}, build
+    seconds of the tree and the probe)."""
+    from repro_torch.core.baselines import (
+        build_hash_probe, build_kmeans_tree, hash_entries, kmtree_entries,
+    )
+
+    t0 = time.perf_counter()
+    tree = build_kmeans_tree(db, branch=8, depth=2, device=dev)
+    t_tree = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe = build_hash_probe(db, idx.hubs.ids, n_bits=16)
+    t_probe = time.perf_counter() - t0
+
+    def random_entry(q, qd):
+        rng = np.random.default_rng(0)
+        return rng.integers(0, len(db), (len(q), 1)).astype(np.int32)
+
+    # each rule takes the queries on the host and on the card
+    rules = {
+        "GATE": lambda q, qd: idx.select_entries(qd, device=dev),
+        "medoid": lambda q, qd: np.full((len(q), 1), idx.enter_id, np.int32),
+        "random": random_entry,
+        "kmtree": lambda q, qd: kmtree_entries(tree, qd, device=dev),
+        "hash": lambda q, qd: hash_entries(probe, q),
+    }
+    return rules, {"kmtree_build_s": t_tree, "hash_build_s": t_probe,
+                   "kmtree_leaves": int(len(tree.leaf_entry))}
+
+
+def entry_search(torch, np, idx, rule, eval_q, gt, sp, dev) -> dict:
+    """One ``batched_search`` of ``eval_q`` from ``rule``'s entries, timed
+    (entry selection included, after one warm-up) and once instrumented."""
+    from repro_torch import batched_search, recall_at_k, summarize
+
+    opnd = idx._device(dev)
+    qd = torch.as_tensor(eval_q, device=dev)
+
+    def run(p):
+        entries = torch.as_tensor(rule(eval_q, qd), device=dev)
+        return batched_search(opnd["db"], opnd["neighbors"], qd, entries, p,
+                              device=dev, **idx._search_kwargs(p, dev))
+
+    run(sp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(sp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _, tele = run(sp.replace(instrument=True))
+    ids = res.ids.cpu().numpy()
+    return {"recall_at_10": recall_at_k(ids, gt, 10), "qps": len(eval_q) / secs,
+            "seconds": secs, "mean_hops": summarize(tele)["mean_hops"],
+            "ids": ids}
+
+
+def gate_row(torch, idx, eval_q, gt, dev) -> dict:
+    """recall@10 and QPS of ``idx``'s ``fused`` l2 search, as phase 5
+    measures them (``search_phase``)."""
+    row = search_phase(torch, idx, eval_q, gt, "l2", ("fused",),
+                       baseline=False, dev=dev)["gate/fused"]
+    return {k: row[k] for k in ("recall_at_10", "qps", "seconds")}
+
+
+def build_seconds(report: dict) -> float:
+    """The entry layer's build seconds: the stages after the base graph
+    that the report has (``repro``'s reports have no ``t_nav``)."""
+    return sum(report.get(k, 0.0) for k in ("t_hubs", "t_topo", "t_samples",
+                                            "t_train", "t_nav"))
+
+
+# hop_mode="bfs" is built on a fresh database of BFS_N rows: at 1M,
+# hop_counts (a host BFS per unique target) projects to thousands of
+# seconds.  The projection times BFS_TIMED targets of the 1M graph in a
+# process of its own while phases 10-11 run.
+BFS_N = 5_000
+BFS_TIMED = 100
+
+
+def time_hop_counts(neighbors, targets, hub_ids) -> dict:
+    """Seconds of ``hop_counts``' reverse CSR, and of its BFS a target, on
+    ``targets`` of the graph ``neighbors``."""
+    from repro_torch.core.samples import _reverse_csr, hop_counts
+
+    t0 = time.perf_counter()
+    _reverse_csr(neighbors)
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hop_counts(neighbors, targets, hub_ids)
+    t_all = time.perf_counter() - t0
+    return {"csr_s": t_csr, "targets_timed": len(targets),
+            "s_per_target": max(t_all - t_csr, 0.0) / len(targets)}
+
+
+def start_bfs_timing(torch, np, pool, idx, train_q, dev, n: int = BFS_TIMED):
+    """Start ``time_hop_counts`` on ``pool`` for the first ``n`` unique
+    training-query targets of ``idx``'s graph, as the bfs build would take
+    them.  Returns (the pending result, the number of unique targets)."""
+    from repro_torch.core.samples import top1_targets
+
+    uniq = np.unique(top1_targets(torch.as_tensor(idx.db, device=dev),
+                                  train_q, device=dev))
+    job = pool.apply_async(time_hop_counts,
+                           (idx.neighbors, uniq[:n], idx.hubs.ids))
+    return job, len(uniq)
+
+
+def bfs_projection(timing: dict, unique_targets: int) -> dict:
+    """A bfs build's ``hop_counts`` seconds over every unique target, from
+    ``time_hop_counts``' reading."""
+    return {**timing, "unique_targets": unique_targets,
+            "projected_s": timing["csr_s"]
+            + unique_targets * timing["s_per_target"]}
+
+
+def greedy_record(torch, np, db, dev, rows: int = 20_000, k: int = 8) -> dict:
+    """``greedy_assign`` on a ``rows`` x ``k`` slice of real distances (the
+    first rows of ``db`` to ``k`` of them), held bit-equal to its plain
+    version and timed beside it and its bound (the bytes of d2 read once,
+    the assignment written once); also timed at the 1M root split's shape."""
+    from repro_torch.kernels import greedy_assign, ref
+
+    hb = importlib.import_module("repro_torch.core.hbkm")
+    rng = np.random.default_rng(0)
+    out = {}
+    for label, n in (("slice", rows), ("root_split", len(db))):
+        x = torch.as_tensor(db[:n], device=dev)
+        c = x[torch.as_tensor(rng.choice(n, k, replace=False), device=dev)]
+        d2 = hb._dists_to_centers(x, c).contiguous()
+        lam = float(np.float32(float(x.var(0, unbiased=False).mean())
+                               / (n / k)))
+        target = float(np.float32(n) / np.float32(k))
+        got = greedy_assign(d2, lam, target)
+        rec = {"shape": [n, k], **bound(n * k * 4 + n * 4, 0),
+               "ms": cuda_ms(torch, lambda i: greedy_assign(d2, lam, target),
+                             reps=10 if label == "slice" else 3)}
+        if label == "slice":
+            want = ref.greedy_assign_ref(d2, lam, target)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    "greedy_assign disagrees with its plain version")
+            rec["max_abs_err"] = 0.0
+            rec["plain_ms"] = cuda_ms(
+                torch, lambda i: ref.greedy_assign_ref(d2, lam, target), reps=1)
+            rec["library_ms"] = None
+        out[label] = rec
+    return out
+
+
+def ablation_phase(torch, np, idx, db, train_q, eval_q, gt, l2_rows, dev,
+                   bfs_n: int = BFS_N, n_leaves: int = 64) -> dict:
+    """The build's ablation paths and the paper's entry baselines on the
+    index's own base graph (phase 10).
+
+    Entry baselines: one ``fused`` ``batched_search`` (phase 5's
+    SearchParams) of ``eval_q`` from each of GATE, medoid, random, kmtree
+    and hash entries; the GATE and medoid rows must equal phase 5's
+    (``l2_rows``).  ``GateConfig(use_hbkm=False)`` from the same graph:
+    build seconds, recall@10 and QPS beside the default index's.
+    ``hop_mode="bfs"`` on a fresh database of ``bfs_n`` rows (its NSG built
+    on the card) beside the default build there (the caller projects the
+    full size's BFS).  Each variant is the index's own ``GateConfig`` with
+    the one flag changed.  Greedy HBKM to ``n_leaves`` leaves at the
+    full size beside the batch mode.  The kernel launches are the caller's
+    to count."""
+    import dataclasses
+
+    from repro_torch import GateIndex, SearchParams, exact_knn
+    from repro_torch.data.synthetic import make_database, train_eval_query_split
+    from repro_torch.graphs.nsg import build_nsg
+
+    hb = importlib.import_module("repro_torch.core.hbkm")
+    t_phase = time.perf_counter()
+    out = {}
+    sp = SearchParams(k=10, beam_width=64, max_hops=256, kernel="fused",
+                      rerank_mult=4)
+
+    # (a) the paper's entry comparison
+    rules, out["entry_build"] = entry_rules(torch, np, idx, db, dev)
+    rows = {}
+    for name, rule in rules.items():
+        rows[name] = entry_search(torch, np, idx, rule, eval_q, gt, sp, dev)
+        log(f"entry {name}: " + json.dumps(
+            {k: v for k, v in rows[name].items() if k != "ids"}))
+    require(np.array_equal(rows["GATE"]["ids"], l2_rows["gate/fused"]["ids"]),
+            "GATE-entry batched_search differs from phase 5's GATE search")
+    require(np.array_equal(rows["medoid"]["ids"],
+                           l2_rows["baseline_medoid/fused"]["ids"]),
+            "medoid-entry batched_search differs from phase 5's baseline")
+    out["entries"] = {k: {kk: vv for kk, vv in v.items() if kk != "ids"}
+                      for k, v in rows.items()}
+
+    # (b) GATE w/o H: plain k-means hubs on the same graph
+    t0 = time.perf_counter()
+    wo_h = GateIndex.from_graph(
+        db, idx.neighbors, idx.enter_id, train_q,
+        dataclasses.replace(idx.gcfg, use_hbkm=False), device=dev)
+    t_build = time.perf_counter() - t0
+    out["without_hbkm"] = {
+        "build_s": t_build, "stages_s": build_seconds(wo_h.build_report),
+        "t_hubs": wo_h.build_report["t_hubs"],
+        **gate_row(torch, wo_h, eval_q, gt, dev),
+        "default": {"stages_s": build_seconds(idx.build_report),
+                    "t_hubs": idx.build_report["t_hubs"],
+                    "recall_at_10": l2_rows["gate/fused"]["recall_at_10"],
+                    "qps": l2_rows["gate/fused"]["qps"]},
+    }
+    log("GATE w/o H: " + json.dumps(out["without_hbkm"]))
+    del wo_h
+
+    # (c) hop_mode="bfs" on a fresh database of bfs_n rows
+    g_db, _ = make_database("sift10m-like", bfs_n, seed=0)
+    g_tq, g_eq = train_eval_query_split(g_db, len(train_q), len(eval_q))
+    t0 = time.perf_counter()
+    nsg = build_nsg(g_db, R=32, knn_k=32, search_l=64, pool_size=96,
+                    device=dev)
+    out["bfs"] = {"n": bfs_n, "nsg_s": time.perf_counter() - t0}
+    g_nbrs, g_enter = nsg.neighbors, nsg.enter_id
+    g_gt, _ = exact_knn(g_eq, g_db, 10, device=dev)
+    t0 = time.perf_counter()
+    base = GateIndex.from_graph(g_db, g_nbrs, g_enter, g_tq, idx.gcfg,
+                                device=dev)
+    default_rec = {"build_s": time.perf_counter() - t0,
+                   "stages_s": build_seconds(base.build_report),
+                   "t_samples": base.build_report["t_samples"],
+                   **gate_row(torch, base, g_eq, g_gt, dev)}
+    del base
+    t0 = time.perf_counter()
+    bfs = GateIndex.from_graph(
+        g_db, g_nbrs, g_enter, g_tq,
+        dataclasses.replace(idx.gcfg, hop_mode="bfs"), device=dev)
+    out["bfs"].update({
+        "build_s": time.perf_counter() - t0,
+        "stages_s": build_seconds(bfs.build_report),
+        "t_samples": bfs.build_report["t_samples"],
+        "samples": bfs.build_report["samples"],
+        **gate_row(torch, bfs, g_eq, g_gt, dev),
+        "default": default_rec,
+    })
+    log("GATE hop_mode=bfs: " + json.dumps(out["bfs"]))
+    del bfs
+
+    # (d) greedy HBKM at the full size beside the batch mode
+    hubs = {}
+    for mode in ("batch", "greedy"):
+        t0 = time.perf_counter()
+        assign, _ = hb.hbkm(db, n_leaves, mode=mode, device=dev)
+        sizes = np.bincount(assign, minlength=n_leaves)
+        hubs[mode] = {"seconds": time.perf_counter() - t0,
+                      "cluster_size_variance":
+                          hb.cluster_size_variance(assign, n_leaves),
+                      "sizes_min_max": [int(sizes.min()), int(sizes.max())]}
+    out["hbkm"] = hubs
+    log(f"hbkm {n_leaves} leaves: " + json.dumps(hubs))
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def attention_check(torch, np, model, params, tokens) -> float:
+    """``blockwise_attention`` against a naive full softmax in fp32, on the
+    first layer's q, k, v of ``tokens`` (one request); returns the largest
+    absolute error over the largest absolute value."""
+    from repro_torch.models.common import blockwise_attention, rms_norm
+
+    cfg = model.cfg
+    with torch.no_grad():
+        x = model._embed_tokens(params, tokens)
+        B, S, _ = x.shape
+        pos = model._positions(B, S, x.device)
+        p0 = model._layer(params, 0)
+        q, k, v = model._attn_proj_qkv(
+            p0, rms_norm(x, p0["attn_norm"], cfg.norm_eps), pos)
+        got = blockwise_attention(q, k, v, pos, pos, causal=True,
+                                  window=cfg.window, chunk=cfg.attn_chunk)
+        G = q.shape[2] // k.shape[2]
+        kr = k.repeat_interleave(G, dim=2)
+        vr = v.repeat_interleave(G, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q * float(1.0 / np.sqrt(q.shape[-1])),
+                         kr)
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool,
+                                      device=s.device).tril(), float("-inf"))
+        want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vr)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
+
+
+def chained_decode_rel(torch, engine, tokens) -> float:
+    """Prefill of all S + 1 ``tokens`` against prefill of the first S then
+    one decode, on ``engine``'s model and weights: the largest difference
+    of the logits at position S over their largest value.  Raises if
+    either is not finite."""
+    model, params = engine.model, engine.compute_params
+    S = tokens.shape[1] - 1
+    t = torch.full((tokens.shape[0],), S, dtype=torch.int32,
+                   device=tokens.device)
+    with torch.no_grad():
+        full, _ = model.prefill(params, {"tokens": tokens})
+        _, cache = model.prefill(params, {"tokens": tokens[:, :S]},
+                                 capacity=S + 1)
+        step, _ = model.decode(params, tokens[:, S:], cache, t)
+    require(bool(torch.isfinite(full).all() and torch.isfinite(step).all()),
+            f"{model.cfg.name}: {model.cfg.compute_dtype} logits are not "
+            "finite")
+    return float((step - full).abs().max() / full.abs().max())
+
+
+def layerwise_decode_check(torch, model, params, tokens) -> float:
+    """Prefill against decode layer by layer: for each layer, given the
+    layer inputs of a prefill of all S + 1 tokens, the layer's decode of
+    position S on the cache of its first S inputs against its full
+    forward at position S.  Returns the largest difference of the layer's
+    output increment (its attention + MLP update) over that increment's
+    largest value, across layers and rows."""
+    with torch.no_grad():
+        x = model._embed_tokens(params, tokens)
+        B, S1, _ = x.shape
+        S = S1 - 1
+        pos = model._positions(B, S1, x.device)
+        t = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        worst = 0.0
+        for i in range(model.cfg.num_layers):
+            p_l = model._layer(params, i)
+            y, _ = model._layer_full(p_l, x, pos)
+            _, (k, v) = model._layer_full(p_l, x[:, :S], pos[:, :S])
+            cache = model._cache_from_prefill(k[None], v[None], pos[:, :S], S,
+                                              capacity=S1)
+            y_dec, _, _, _ = model._layer_decode(
+                p_l, x[:, S:], cache["k"][0], cache["v"][0], cache["pos"], t)
+            want = (y[:, S] - x[:, S]).to(torch.float32)
+            got = (y_dec[:, 0] - x[:, S]).to(torch.float32)
+            worst = max(worst, float((got - want).abs().max()
+                                     / want.abs().max().clamp_min(1e-30)))
+            x = y
+    return worst
+
+
+def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
+              prompt_len: int = 64, doc_len: int = 128, new: int = 32,
+              cfg=None) -> dict:
+    """RAG serving with a dense decoder at its published width (phase 11).
+
+    The model's weights are drawn on the card (``torch.Generator``, seed
+    0); every row of the index gets a ``doc_len``-token block
+    (``default_rng(0)``).  Checks, each raising: finite logits; two
+    generations of one batch give the same tokens; prefill of S + 1 tokens
+    against prefill of S then one decode, S + 1 one request's context: on
+    a float64 copy the logits within 1e-6 relative, on a float32 copy each
+    layer's decode against its prefill given the same layer inputs (1e-3)
+    and the logits' difference reported; ``blockwise_attention`` against a
+    naive softmax at one request's first-layer shapes (1e-4).  Then a ``ServeDaemon`` with a
+    ``RagPipeline`` (k = 4, ``fused``) on ``DEFAULT_LADDER`` serves
+    ``n_req`` requests of ``batch`` queries with prompts, and one more
+    request runs under the profiler; the kernel launches are the caller's
+    to count, and the per-request checks against ``idx.search`` at each
+    request's rung run after (``check``).  ``cfg`` defaults to gemma-2b's published config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import count_params
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import DEFAULT_LADDER, get_tracer
+    from repro_torch.serve.daemon import SearchRequest, ServeDaemon
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.retrieval import RagPipeline
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma-2b") if cfg is None else cfg
+    arch = cfg.name
+    model = build_model(cfg)
+    out = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params": count_params(model.param_table())}
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    engine = ServeEngine(cfg, params, device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["resident_bytes"] = engine.resident_bytes()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    doc_tokens = rng.integers(2, cfg.vocab_size, (len(idx.db), doc_len),
+                              dtype=np.int32)
+    out["doc_tokens_s"] = time.perf_counter() - t0
+    pipe = RagPipeline(idx, engine, doc_tokens, k=4, kernel="fused", device=dev)
+    batches = _batches(np, eval_q, n_req, batch, 0)
+    prompts = [rng.integers(2, cfg.vocab_size, (batch, prompt_len),
+                            dtype=np.int32) for _ in range(n_req)]
+
+    # model checks on the first request's context
+    ids0 = pipe(batches[0], prompts[0], max_new_tokens=1).retrieved_ids
+    ctx = pipe._splice(prompts[0], ids0)
+    out["context_len"] = int(ctx.shape[1])
+    g1 = engine.generate({"tokens": ctx}, new)
+    g2 = engine.generate({"tokens": ctx}, new)
+    require(bool(np.isfinite(g1.logits_last).all()),
+            f"{arch}: logits are not finite")
+    require(np.array_equal(g1.tokens, g2.tokens),
+            f"{arch}: two greedy generations of one batch differ")
+    c2 = torch.as_tensor(ctx[:2], device=dev)
+    # end to end in float32, the random-init model amplifies rounding (repro
+    # does the same: tests/test_torch_lm_precision.py), so that difference
+    # is reported; in float64 the same comparison is held, and in float32
+    # each layer's decode against its prefill
+    e32 = ServeEngine(cfg.with_(compute_dtype="float32"), engine.params,
+                      device=dev)
+    rel = chained_decode_rel(torch, e32, c2)
+    layer_rel = layerwise_decode_check(torch, e32.model, e32.compute_params, c2)
+    require(layer_rel <= 1e-3,
+            f"{arch}: a layer's decode differs from its prefill by "
+            f"{layer_rel:.3g} relative > 1e-3")
+    att = attention_check(torch, np, e32.model, e32.compute_params, c2[:1])
+    require(att <= 1e-4, f"{arch}: blockwise_attention off a naive softmax by "
+                         f"{att:.3g} > 1e-4")
+    del e32
+    e64 = ServeEngine(cfg.with_(compute_dtype="float64"), engine.params,
+                      device=dev)
+    rel64 = chained_decode_rel(torch, e64, c2)
+    require(rel64 <= 1e-6,
+            f"{arch}: float64 prefill(S+1) and prefill(S)+decode differ by "
+            f"{rel64:.3g} relative > 1e-6")
+    del e64
+    torch.cuda.empty_cache()
+    out["checks"] = {"finite": True, "greedy_repeatable": True,
+                     "prefill_decode_rel_err": rel,
+                     "prefill_decode_rel_err_f64": rel64,
+                     "layer_decode_rel_err": layer_rel,
+                     "attention_rel_err": att,
+                     "tokens_first_row": g1.tokens[0, :8].tolist()}
+    log(f"rag model checks ({arch}): " + json.dumps(out["checks"]))
+
+    # serving through the daemon
+    daemon = ServeDaemon(idx, pipeline=pipe, ladder=DEFAULT_LADDER,
+                         kernel="fused", batch_size=batch, device=dev)
+    tracer = get_tracer()
+    t0 = time.perf_counter()
+    daemon.start()
+    warm_s = time.perf_counter() - t0
+    lat, rungs, res = [], [], []
+    tracer.start()
+    try:
+        for q, pr in zip(batches, prompts):
+            rungs.append(daemon.controller.params)
+            t0 = time.perf_counter()
+            res.append(daemon.submit(SearchRequest(
+                queries=q, k=4, prompt_tokens=pr, max_new_tokens=new,
+            )).get(timeout=600))
+            lat.append(time.perf_counter() - t0)
+    finally:
+        tracer.stop()
+        daemon.stop()
+    spans = tracer.span_summary()
+    tokens = sum(r.generation.tokens.size for r in res)
+    for r in res:
+        require(bool(np.isfinite(r.generation.logits_last).all()),
+                f"{arch}: served logits are not finite")
+        require(r.generation.tokens.shape == (batch, new),
+                "served generation has the wrong shape")
+    sec = {name: spans.get(key, {}).get("total_s", 0.0) for name, key in (
+        ("retrieve", "rag.retrieve"), ("prefill", "serve.prefill"),
+        ("decode", "serve.decode"))}
+    out["serve"] = {
+        "warmup_s": warm_s, "latency_p50_s": float(np.quantile(lat, 0.5)),
+        "latency_p99_s": float(np.quantile(lat, 0.99)), "latency_s": lat,
+        "span_seconds": sec, "tokens": tokens,
+        "tokens_per_s": tokens / sum(lat),
+        "decode_tokens_per_s": tokens / sec["decode"] if sec["decode"] else None,
+        "rungs": [[r.beam_width, r.max_hops] for r in rungs],
+    }
+    log("rag serve: " + json.dumps(
+        {k: v for k, v in out["serve"].items() if k != "latency_s"}))
+
+    # one more request of the first batch, timed, then again under the
+    # profiler (the daemon's requests warmed everything)
+    def one():
+        pipe(batches[0], prompts[0], max_new_tokens=new)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    out["profile_request"] = profile_call(torch, one, time.perf_counter() - t0)
+    log("rag profile, one request: " + json.dumps(out["profile_request"]))
+    out["check"] = (batches, rungs, res, pipe.base_params)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_rag(torch, np, idx, check, dev) -> int:
+    """Each served request's retrieved ids against ``idx.search`` of its
+    batch at the rung it was served at; returns the requests checked."""
+    batches, rungs, res, base = check
+    for q, rung, r in zip(batches, rungs, res):
+        want = idx.search(q, params=rung.params(base.replace(instrument=True)),
+                          telemetry_sink=None, device=dev)[0]
+        require(np.array_equal(r.retrieved_ids, want.ids.cpu().numpy()),
+                f"RAG request ids differ from search at rung {rung}")
+    return len(res)
+
 CSRC = "src/repro_torch/csrc/"
 SOURCES = {"gather_rows_dist": CSRC + "gather_dist.cu",
            "gather_rows_dist_q8": CSRC + "gather_dist.cu",
            "twotower_score": CSRC + "twotower_score.cu",
            "topk_min": CSRC + "topk.cu", "l2dist": CSRC + "l2dist.cu",
-           "gather_dist": CSRC + "gather_dist.cu"}
+           "gather_dist": CSRC + "gather_dist.cu",
+           "greedy_assign": CSRC + "greedy_assign.cu"}
 REPLACES = {"gather_rows_dist": "src/repro/kernels/gather_dist.py:129",
             "gather_rows_dist_q8": "src/repro/kernels/gather_dist.py:205",
             "twotower_score": "src/repro/kernels/twotower_score.py:40",
             "topk_min": "src/repro/kernels/topk.py:40",
             "l2dist": "src/repro/kernels/l2dist.py:49",
-            "gather_dist": "src/repro/kernels/gather_dist.py:59"}
+            "gather_dist": "src/repro/kernels/gather_dist.py:59",
+            # port-only: repro runs this pass as a lax.scan, no Pallas kernel
+            "greedy_assign": "none (port-only; repro scans it at "
+                             "src/repro/core/hbkm.py:75)"}
 SHAPE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
               "max_abs_err", "baseline_ms", "baseline_max_abs_err", "plan",
               "ms_net", "baseline_ms_net", "read_ms")
@@ -1252,14 +1794,18 @@ def _at_shape(rec: dict) -> dict:
 
 
 def kernels_line(kres, api, hop, launches, serve_launches,
-                 feedback_launches, single) -> list:
+                 feedback_launches, single, greedy, ablation_launches=None,
+                 rag_launches=None) -> list:
     """One entry per kernel for the line before the last: K1 and K2 at the
     10,000-query search's own calls (hop phase) with their fixed (1024, 32)
     rows beside them, and K1 at the single-query search's (1, R) calls
     (``single``); K3 at the search's shape with the serve request's beside
     it; K4 and K5 at bench_kernels.py's shapes with the composed top-10's
-    beside them; K6 at bench_kernels.py's.  K1-K3 count their launches on
-    the search, serve and feedback paths."""
+    beside them; K6 at bench_kernels.py's; ``greedy_assign`` (port-only)
+    at its 20,000-row slice with the 1M root split beside it (``greedy``).
+    K1-K3 count their launches on the search, serve, feedback, ablation
+    and RAG paths, ``greedy_assign`` on the ablation path."""
+    extra = {"ablations": ablation_launches or {}, "rag": rag_launches or {}}
     hop_of = {"gather_rows_dist": "fused_l2", "gather_rows_dist_q8": "fused_q8_l2"}
     comp = api["composed_top10"]
     line = []
@@ -1282,10 +1828,18 @@ def kernels_line(kres, api, hop, launches, serve_launches,
             err = max(v["max_abs_err"] for v in kres[name].values())
             by_path = {"search": launches[name], "serve": serve_launches[name],
                        "feedback": feedback_launches[name]}
+        elif name == "greedy_assign":  # port-only: greedy HBKM
+            main_rec = greedy["slice"]
+            err = main_rec["max_abs_err"]
+            by_path = {"ablations": extra["ablations"].get(name, 0)}
         else:             # K4-K6: the kernel API path
             main_rec = api[name]
             err = main_rec["max_abs_err"]
             by_path = {"api": api["launches"][name]}
+        if name in ("gather_rows_dist", "gather_rows_dist_q8", "twotower_score"):
+            for path, counts in extra.items():
+                if counts:
+                    by_path[path] = counts.get(name, 0)
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -1312,6 +1866,11 @@ def kernels_line(kres, api, hop, launches, serve_launches,
         if name == "twotower_score":
             entry["library_call"] = "torch.nn.functional.cosine_similarity"
             entry["serve_shape"] = _at_shape(kres[name]["serve"])
+        elif name == "greedy_assign":
+            entry["library_call"] = None
+            entry["library_note"] = ("no PyTorch call assigns rows one after "
+                                     "another against running counts")
+            entry["root_split_shape"] = _at_shape(greedy["root_split"])
         else:
             entry["library_call"] = main_rec["library_call"]
         if name in ("l2dist", "topk_min"):
@@ -1512,8 +2071,50 @@ def main(argv=None) -> int:
     log("K1 at the single-query shape: " + json.dumps(single))
     log(f"phase 9: {fb['seconds']:.1f} s")
 
+    # the bfs build's hop_counts at 1M, timed in a process of its own while
+    # phases 10-11 run (the pool is stopped however they end)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        bfs_job, bfs_targets = start_bfs_timing(torch, np, pool, idx, train_q,
+                                                dev)
+
+        # 10. the build's ablation paths and the entry baselines on phase
+        # 4's graph; its own counts, then greedy_assign held against its
+        # plain version
+        K.reset_launch_counts()
+        abl = ablation_phase(torch, np, idx, db, train_q, eval_q, gt, l2, dev)
+        abl_launches = K.launch_counts()
+        log("launches on the ablation path: " + json.dumps(abl_launches))
+        for name in ("gather_rows_dist", "twotower_score", "greedy_assign"):
+            require(abl_launches[name] > 0,
+                    f"kernel {name} was not launched on the ablation path")
+        greedy = greedy_record(torch, np, db, dev)
+        log("greedy_assign: " + json.dumps(greedy))
+        log(f"phase 10: {abl['seconds']:.1f} s")
+
+        # 11. retrieval-augmented serving with gemma-2b at full width; its
+        # own counts, then each request held against a plain search at its
+        # rung
+        K.reset_launch_counts()
+        rag = rag_phase(torch, np, idx, eval_q, dev)
+        rag_launches = K.launch_counts()
+        log("launches on the RAG path: " + json.dumps(rag_launches))
+        for name in ("gather_rows_dist", "twotower_score"):
+            require(rag_launches[name] > 0,
+                    f"kernel {name} was not launched on the RAG path")
+        rag["requests_checked"] = check_rag(torch, np, idx, rag.pop("check"),
+                                            dev)
+        log(f"phase 11: {rag['seconds']:.1f} s, {rag['requests_checked']} "
+            "requests' ids equal a plain search at their rung")
+        t0 = time.perf_counter()
+        abl["bfs"]["projection_full_size"] = bfs_projection(
+            bfs_job.get(timeout=600), bfs_targets)
+        log(f"bfs at N={args.n}, hop_counts projected (waited "
+            f"{time.perf_counter() - t0:.1f} s): "
+            + json.dumps(abl["bfs"]["projection_full_size"]))
+
     line = kernels_line(kres, api, hop, launches, serve_launches,
-                        fb_launches, single)
+                        fb_launches, single, greedy, abl_launches,
+                        rag_launches)
     record = {
         "card": smi, "n": args.n, "queries": args.queries,
         "timing_floor_ms": floor_ms,
@@ -1529,6 +2130,8 @@ def main(argv=None) -> int:
         "serve": serve, "search_on_baseline_k3": on_base,
         "feedback": fb, "feedback_launches": fb_launches,
         "k1_single_query": single,
+        "ablations": abl, "ablation_launches": abl_launches,
+        "greedy_assign": greedy, "rag": rag, "rag_launches": rag_launches,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

@@ -25,8 +25,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# name -> module; ``repro``'s export table less what is not ported yet
-# (``RagPipeline``), plus ``exact_knn`` and ``recall_at_k``
+# name -> module; ``repro``'s export table plus ``exact_knn`` and
+# ``recall_at_k``
 _EXPORTS = {
     # search configuration + primitives
     "SearchParams": "repro_torch.graphs.params",
@@ -62,6 +62,7 @@ _EXPORTS = {
     # serving
     "SearchRequest": "repro_torch.serve.daemon",
     "ServeDaemon": "repro_torch.serve.daemon",
+    "RagPipeline": "repro_torch.serve.retrieval",
     # feedback loop: capture -> replay -> fit -> hot-reload
     "QueryLog": "repro_torch.feedback.qlog",
     "ShadowOversearch": "repro_torch.feedback.qlog",

@@ -1,10 +1,12 @@
-"""Carry a ``repro`` index across: ``index_from_numpy``.
+"""Carry ``repro`` state across: ``index_from_numpy``, ``lm_params_from_numpy``.
 
-``repro``'s ``GateIndex.save`` pickles one dictionary; this module takes
-exactly that dictionary, with its dataclasses (``tower_cfg``, ``gcfg``) given
-as plain dicts and every array as a numpy array, and returns a port
-``GateIndex`` whose ``search`` computes what ``repro``'s does.  It imports
-nothing of ``repro``: the caller reads the pickle (or the live index).
+``repro``'s ``GateIndex.save`` pickles one dictionary; ``index_from_numpy``
+takes exactly that dictionary, with its dataclasses (``tower_cfg``,
+``gcfg``) given as plain dicts and every array as a numpy array, and
+returns a port ``GateIndex`` whose ``search`` computes what ``repro``'s
+does.  ``lm_params_from_numpy`` does the same for a language model's
+parameter dict.  This module imports nothing of ``repro``: the caller
+reads the pickle (or the live objects).
 """
 from __future__ import annotations
 
@@ -12,10 +14,15 @@ from typing import Mapping
 
 import numpy as np
 
+import torch
+
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gate_index import GateConfig, GateIndex
 from repro_torch.core.hubs import HubSet
 from repro_torch.core.navgraph import NavGraph
 from repro_torch.core.twotower import TwoTowerConfig, init_params
+from repro_torch.models.common import torch_dtype
+from repro_torch.models.model import build_model
 from repro_torch.quant import QuantizedDb
 
 
@@ -47,3 +54,26 @@ def index_from_numpy(state: Mapping, device="cuda") -> GateIndex:
     )
     idx._device(device)
     return idx
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
+                         device="cuda") -> dict:
+    """``repro``'s LM parameters (name -> array, ``repro``'s names and
+    layouts) as the port's parameter dict on ``device``, in the config's
+    ``param_dtype``.  Raises unless the names and shapes are exactly those
+    of the port model's ``param_table``."""
+    table = build_model(cfg).param_table()
+    if set(params) != set(table):
+        raise ValueError(
+            f"lm_params_from_numpy: names differ from {cfg.name}'s table: "
+            f"missing {sorted(set(table) - set(params))}, "
+            f"extra {sorted(set(params) - set(table))}")
+    out = {}
+    for name, spec in table.items():
+        a = np.array(params[name], np.float32)
+        if a.shape != spec.shape:
+            raise ValueError(f"lm_params_from_numpy: {name} has shape "
+                             f"{a.shape}, the table {spec.shape}")
+        out[name] = torch.as_tensor(a, device=device).to(
+            torch_dtype(spec.dtype or cfg.param_dtype))
+    return out

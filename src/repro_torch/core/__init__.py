@@ -6,18 +6,20 @@ Public API:
     GateConfig, GateIndex          — build/search (core.gate_index)
     hbkm, extract_hubs             — §4.1 (core.hbkm / core.hubs)
     sample_subgraph, wl_embed      — §4.2 topology (core.subgraph/topo_embed)
-    make_samples, top1_targets     — §4.2 query awareness (core.samples)
+    hop_counts, make_samples       — §4.2 query awareness (core.samples)
     TwoTowerConfig, train_two_tower — §4.3 (core.twotower)
     build_nav_graph                — §4.3 (core.navgraph)
-
-``repro.core``'s ``kmeans_hubs`` and ``hop_counts`` are not ported yet
-(ROADMAP A4).
 """
 from repro_torch.core.gate_index import GateConfig, GateIndex
 from repro_torch.core.hbkm import balanced_kmeans, cluster_size_variance, hbkm
-from repro_torch.core.hubs import HubSet, extract_hubs
+from repro_torch.core.hubs import HubSet, extract_hubs, kmeans_hubs
 from repro_torch.core.navgraph import NavGraph, build_nav_graph
-from repro_torch.core.samples import SampleSet, make_samples, top1_targets
+from repro_torch.core.samples import (
+    SampleSet,
+    hop_counts,
+    make_samples,
+    top1_targets,
+)
 from repro_torch.core.subgraph import (
     Subgraph,
     sample_all_subgraphs,
@@ -36,7 +38,8 @@ __all__ = [
     "GateConfig", "GateIndex", "HubSet", "NavGraph", "SampleSet", "Subgraph",
     "TwoTowerConfig", "balanced_kmeans", "build_nav_graph",
     "cluster_size_variance", "embed_all", "extract_hubs", "hbkm",
-    "hub_tower", "info_nce", "make_samples", "query_tower",
+    "hop_counts", "hub_tower", "info_nce", "kmeans_hubs", "make_samples",
+    "query_tower",
     "sample_all_subgraphs", "sample_subgraph", "top1_targets",
     "train_two_tower", "wl_embed", "wl_embed_tokens",
 ]

@@ -40,8 +40,13 @@ import torch
 
 from repro_torch import quant as quantlib
 from repro_torch.core import navgraph as ng
-from repro_torch.core.hubs import HubSet, extract_hubs
-from repro_torch.core.samples import greedy_hops, make_samples, top1_targets
+from repro_torch.core.hubs import HubSet, extract_hubs, kmeans_hubs
+from repro_torch.core.samples import (
+    greedy_hops,
+    hop_counts,
+    make_samples,
+    top1_targets,
+)
 from repro_torch.core.subgraph import sample_all_subgraphs
 from repro_torch.core.topo_embed import embed_all
 from repro_torch.core.twotower import (
@@ -97,8 +102,9 @@ class GateConfig:
     probe_width: int = 1
     hbkm_branch: int = 8
     hbkm_lam: float = 1.0
-    # H(q, V_i) measurement (Def. 4): "greedy" = Algorithm-1 path length;
-    # "bfs" (literal shortest-path hops) is not ported yet
+    # H(q, V_i) measurement (Def. 4): "greedy" = Algorithm-1 path length
+    # (the paper's implementation); "bfs" = literal shortest-path hops
+    # (host numpy, kept for ablation)
     hop_mode: str = "greedy"
     hop_beam: int = 8
     hop_max: int = 48
@@ -106,23 +112,10 @@ class GateConfig:
     # twotower_score pass; larger sets use the nav-graph cosine descent
     flat_score_max: int = 128
     # ablations (§5.2 Exp-2)
-    use_hbkm: bool = True        # False → GATE w/o H (not ported yet)
+    use_hbkm: bool = True        # False → GATE w/o H (plain k-means hubs)
     use_fusion: bool = True      # False → GATE w/o FE
     use_contrastive: bool = True # False → GATE w/o L (untrained towers)
     seed: int = 0
-
-
-def _not_ported(gcfg: GateConfig) -> None:
-    if gcfg.hop_mode != "greedy":
-        raise NotImplementedError(
-            f'GateConfig(hop_mode={gcfg.hop_mode!r}): hop_counts ("bfs") is '
-            "not ported yet (ROADMAP A4, deferred pieces)"
-        )
-    if not gcfg.use_hbkm:
-        raise NotImplementedError(
-            "GateConfig(use_hbkm=False): kmeans_hubs is not ported yet "
-            "(ROADMAP A4, deferred pieces)"
-        )
 
 
 def _sync(device) -> None:
@@ -160,7 +153,6 @@ class GateIndex:
         *,
         device="cuda",
     ) -> "GateIndex":
-        _not_ported(gcfg)
         device = torch.device(device)
         report = {}
 
@@ -169,11 +161,16 @@ class GateIndex:
             report[name] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        with span("gate.build.hubs", n_hubs=gcfg.n_hubs, method="hbkm"):
-            hubs = extract_hubs(
-                db, gcfg.n_hubs, branch_k=gcfg.hbkm_branch, lam=gcfg.hbkm_lam,
-                seed=gcfg.seed, device=device,
-            )
+        with span("gate.build.hubs", n_hubs=gcfg.n_hubs,
+                  method="hbkm" if gcfg.use_hbkm else "kmeans"):
+            if gcfg.use_hbkm:
+                hubs = extract_hubs(
+                    db, gcfg.n_hubs, branch_k=gcfg.hbkm_branch,
+                    lam=gcfg.hbkm_lam, seed=gcfg.seed, device=device,
+                )
+            else:
+                hubs = kmeans_hubs(db, gcfg.n_hubs, seed=gcfg.seed,
+                                   device=device)
             stage("t_hubs", t0)
 
         t0 = time.perf_counter()
@@ -194,10 +191,14 @@ class GateIndex:
                   n_queries=len(train_queries)):
             dbt = torch.as_tensor(db, device=device)
             targets = top1_targets(dbt, train_queries, device=device)
-            hops = greedy_hops(
-                dbt, neighbors, train_queries, hubs.ids, targets,
-                beam_width=gcfg.hop_beam, max_hops=gcfg.hop_max, device=device,
-            )
+            if gcfg.hop_mode == "greedy":
+                hops = greedy_hops(
+                    dbt, neighbors, train_queries, hubs.ids, targets,
+                    beam_width=gcfg.hop_beam, max_hops=gcfg.hop_max,
+                    device=device,
+                )
+            else:
+                hops = hop_counts(np.asarray(neighbors), targets, hubs.ids)
             samples = make_samples(hops, t_pos=gcfg.t_pos, t_neg=gcfg.t_neg,
                                    seed=gcfg.seed)
             stage("t_samples", t0)
@@ -249,7 +250,6 @@ class GateIndex:
         device="cuda",
         **nsg_kw,
     ) -> "GateIndex":
-        _not_ported(gcfg)
         t0 = time.perf_counter()
         if nsg is None:
             with span("gate.build.nsg", n=len(db)):

@@ -1,11 +1,18 @@
-"""Hierarchical Balanced K-Means (paper Algorithm 2), batch mode.
+"""Hierarchical Balanced K-Means (paper Algorithm 2).
 
 Recursive k-way partitioning down to ``n_c`` leaf clusters, with the paper's
 cluster-size penalty ``λ(|C_j| − |C|/k)²`` added to the assignment criterion.
-Each split is ``repro``'s batch-synchronous mode: every point picks
-``argmin_j ‖x−μ_j‖² + λ_eff·(2 c_j − 2 |C|/k + 1)`` against the previous
-iteration's counts, one matrix product per iteration on ``device``.  The
-recursion and the leaf-budget allocation are numpy, as in ``repro``.
+Two assignment modes, as in ``repro``:
+
+  * ``batch`` (default): every point picks
+    ``argmin_j ‖x−μ_j‖² + λ_eff·(2 c_j − 2 |C|/k + 1)`` against the previous
+    iteration's counts, one matrix product per iteration on ``device``.
+  * ``greedy`` (paper-faithful): points are assigned one after another with
+    the counts updated as they go.  The distances are one matrix product on
+    ``device``; the sequential pass is the ``greedy_assign`` kernel (one
+    warp walks the rows), then the centres are the members' means.
+
+The recursion and the leaf-budget allocation are numpy, as in ``repro``.
 
 ``repro`` pads each split to a power of two to keep jit caches warm; the
 padded rows are excluded from every count and sum, so the port does not pad.
@@ -17,15 +24,44 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.greedy_assign import greedy_assign
+
+
+def _dists_to_centers(x, centers):
+    return (
+        torch.sum(x * x, dim=1, keepdim=True)
+        - 2.0 * x @ centers.T
+        + torch.sum(centers * centers, dim=1)[None, :]
+    )
+
+
+def _update_centers(x, assign, k):
+    """Members' means; an empty cluster's centre becomes 0 (``repro``)."""
+    oh = torch.nn.functional.one_hot(assign.long(), k).to(torch.float32)
+    sums = oh.T @ x
+    counts = torch.sum(oh, dim=0)
+    return sums / torch.clamp_min(counts, 1.0)[:, None], counts
+
+
+def _kmeans_greedy(x, centers, lam_eff, k, iters):
+    """Paper-faithful sequential greedy k-means. Returns (assign, centers)."""
+    target = float(torch.tensor(x.shape[0], dtype=torch.float32) / k)
+    lam = float(lam_eff)
+    assign = None
+    for _ in range(iters):
+        assign = greedy_assign(_dists_to_centers(x, centers).contiguous(),
+                               lam, target)
+        centers, _ = _update_centers(x, assign, k)
+    return assign, centers
+
 
 def _kmeans_batch(x, centers, lam_eff, k, iters):
     """Batch-synchronous balanced k-means. Returns (assign, centers)."""
     target = torch.tensor(x.shape[0], dtype=torch.float32) / k
     counts = torch.zeros((k,), dtype=torch.float32, device=x.device)
-    xx = torch.sum(x * x, dim=1, keepdim=True)
     assign = None
     for _ in range(iters):
-        d2 = xx - 2.0 * x @ centers.T + torch.sum(centers * centers, dim=1)[None, :]
+        d2 = _dists_to_centers(x, centers)
         pen = lam_eff * (2.0 * counts - 2.0 * target.to(x.device) + 1.0)
         assign = torch.argmin(d2 + pen[None, :], dim=1)
         oh = torch.nn.functional.one_hot(assign, k).to(torch.float32)
@@ -51,11 +87,8 @@ def balanced_kmeans(
     device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One balanced k-means split. Returns (assignments (n,), centers (k,d))."""
-    if mode != "batch":
-        raise NotImplementedError(
-            f"balanced_kmeans(mode={mode!r}): only the batch mode is ported; "
-            "greedy HBKM is a ROADMAP item of the port"
-        )
+    if mode not in ("batch", "greedy"):
+        raise ValueError(mode)
     rng = np.random.default_rng(seed)
     n = x.shape[0]
     idx = rng.choice(n, size=min(k, n), replace=False)
@@ -66,8 +99,9 @@ def balanced_kmeans(
     lam_eff = torch.tensor(lam * scale / max(n / k, 1.0), dtype=torch.float32,
                            device=device)
     xt = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    run = _kmeans_batch if mode == "batch" else _kmeans_greedy
     with torch.no_grad():
-        assign, c = _kmeans_batch(
+        assign, c = run(
             xt, torch.as_tensor(centers, device=device), lam_eff, k, iters)
     return assign.cpu().numpy(), c.cpu().numpy()
 

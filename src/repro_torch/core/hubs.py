@@ -10,7 +10,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.hbkm import hbkm
+from repro_torch.core.hbkm import balanced_kmeans, hbkm
 from repro_torch.graphs.knn import exact_knn
 
 
@@ -45,6 +45,29 @@ def extract_hubs(
         members = np.where(assign == c)[0]
         cen = centroids[c : c + 1].astype(db.dtype)
         if len(members) == 0:  # defensive: empty cluster → global nearest
+            nn, _ = exact_knn(cen, dbt, 1, device=device)
+            ids[c] = int(nn[0, 0])
+            continue
+        local, _ = exact_knn(
+            cen, dbt[torch.as_tensor(members, device=dbt.device)], 1,
+            device=device,
+        )
+        ids[c] = int(members[local[0, 0]])
+    return HubSet(ids=ids, assign=assign, centroids=centroids)
+
+
+def kmeans_hubs(db: np.ndarray, n_c: int, seed: int = 0, iters: int = 8,
+                *, device="cuda") -> HubSet:
+    """Ablation baseline (GATE w/o H): plain (unbalanced) k-means medoids."""
+    assign, centroids = balanced_kmeans(
+        db, n_c, lam=0.0, iters=iters, seed=seed, device=device,
+    )
+    dbt = torch.as_tensor(db, device=device)
+    ids = np.zeros(n_c, np.int64)
+    for c in range(n_c):
+        members = np.where(assign == c)[0]
+        cen = centroids[c : c + 1].astype(db.dtype)
+        if len(members) == 0:
             nn, _ = exact_knn(cen, dbt, 1, device=device)
             ids[c] = int(nn[0, 0])
             continue

@@ -2,7 +2,9 @@
 
 ``H(q, V_i)`` is the number of Algorithm-1 hops from hub ``V_i`` until the
 top-1 neighbor of query ``q`` enters the beam (``greedy_hops``, the paper's
-implementation and ``repro``'s default ``hop_mode="greedy"``).
+implementation and the default ``hop_mode="greedy"``), or the literal
+shortest-path hop count from a reverse BFS (``hop_counts``,
+``hop_mode="bfs"``; host numpy, as in ``repro``).
 
 A query q is a POSITIVE for hub V_i if  H(q,V_i) ≤ min_q' H(q',V_i) + t_pos,
 and a NEGATIVE if                      H(q,V_i) ≥ min_q' H(q',V_i) + t_neg.
@@ -10,7 +12,7 @@ and a NEGATIVE if                      H(q,V_i) ≥ min_q' H(q',V_i) + t_neg.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +20,69 @@ import torch
 from repro_torch.graphs.knn import exact_knn
 from repro_torch.graphs.params import SearchParams
 from repro_torch.graphs.search import batched_search
+
+
+def _reverse_csr(neighbors: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR of the reversed graph (v -> list of u with edge u->v)."""
+    n, R = neighbors.shape
+    src = np.repeat(np.arange(n, dtype=np.int64), R)
+    dst = neighbors.reshape(-1).astype(np.int64)
+    m = dst >= 0
+    src, dst = src[m], dst[m]
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    indptr = np.zeros(n + 1, np.int64)
+    np.add.at(indptr, dst + 1, 1)
+    np.cumsum(indptr, out=indptr)
+    return indptr, src
+
+
+def hop_counts(
+    neighbors: np.ndarray,   # (N, R) forward adjacency
+    targets: np.ndarray,     # (Q,) top-1 node id per query
+    hub_ids: np.ndarray,     # (n_c,) hub node ids
+    max_hops: int = 64,
+) -> np.ndarray:
+    """(Q, n_c) hop count from each hub to each query's target (BFS);
+    unreachable within max_hops → max_hops."""
+    n = neighbors.shape[0]
+    indptr, rev = _reverse_csr(neighbors)
+    hub_pos = np.full(n, -1, np.int64)
+    hub_pos[hub_ids] = np.arange(len(hub_ids))
+    out = np.full((len(targets), len(hub_ids)), max_hops, np.int32)
+
+    # dedup targets (many queries share a top-1)
+    uniq, inv = np.unique(targets, return_inverse=True)
+    dist = np.empty(n, np.int32)
+    for ui, t in enumerate(uniq):
+        dist.fill(-1)
+        dist[t] = 0
+        frontier = np.array([t], np.int64)
+        hubs_left = len(hub_ids)
+        row = np.full(len(hub_ids), max_hops, np.int32)
+        if hub_pos[t] >= 0:
+            row[hub_pos[t]] = 0
+            hubs_left -= 1
+        d = 0
+        while len(frontier) and d < max_hops and hubs_left > 0:
+            d += 1
+            # gather all reverse neighbors of the frontier
+            segs = [rev[indptr[v] : indptr[v + 1]] for v in frontier]
+            if not segs:
+                break
+            nxt = np.unique(np.concatenate(segs)) if segs else frontier[:0]
+            nxt = nxt[dist[nxt] < 0]
+            if len(nxt) == 0:
+                break
+            dist[nxt] = d
+            hp = hub_pos[nxt]
+            hit = hp >= 0
+            if hit.any():
+                row[hp[hit]] = d
+                hubs_left -= int(hit.sum())
+            frontier = nxt
+        out[inv == ui] = row[None, :]
+    return out
 
 
 def top1_targets(db, queries, device="cuda") -> np.ndarray:

@@ -6,6 +6,8 @@
   topk_min             k smallest per row, ties to the lowest index (K4)
   l2dist               tiled squared-L2 distance matrix (K5)
   gather_dist          masked L2 of pre-gathered rows, the legacy kernel (K6)
+  greedy_assign        sequential greedy balanced assignment (greedy HBKM;
+                       port-only, ``repro`` scans it in JAX)
 
 Each wrapper runs its plain PyTorch version (``kernels.ref``) on CPU tensors
 and launches its CUDA kernel on CUDA tensors; it counts its launches, so a
@@ -18,6 +20,7 @@ submodule by its full path (``repro_torch.kernels.gather_dist``).
 """
 from repro_torch.kernels.gather_dist import gather_dist as _gather_dist
 from repro_torch.kernels.gather_dist import gather_rows_dist, gather_rows_dist_q8
+from repro_torch.kernels.greedy_assign import greedy_assign
 from repro_torch.kernels.l2dist import l2dist as _l2dist
 from repro_torch.kernels.topk import topk_min as _topk_min
 from repro_torch.kernels.twotower_score import twotower_score as _twotower_score
@@ -31,6 +34,7 @@ KERNELS = {
     "topk_min": _topk_min,
     "l2dist": _l2dist,
     "gather_dist": _gather_dist,
+    "greedy_assign": greedy_assign,
 }
 
 
@@ -46,6 +50,6 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS", "gather_dist", "gather_rows_dist", "gather_rows_dist_q8",
-    "l2dist", "launch_counts", "reset_launch_counts", "topk_min",
+    "greedy_assign", "l2dist", "launch_counts", "reset_launch_counts", "topk_min",
     "twotower_score",
 ]

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract).
 
 Each function computes what its hand-written CUDA kernel computes.  The
-wrappers in ``gather_dist`` / ``twotower_score`` run these on CPU tensors
+wrappers in ``gather_dist`` / ``twotower_score`` / ``greedy_assign`` run
+these on CPU tensors
 (and under ``SearchParams(kernel_interpret=True)``); the tests compare them
 with ``repro``'s Pallas kernels, and ``chip_smoke.py`` compares the CUDA
 kernels with them on the card.
@@ -93,3 +94,23 @@ def twotower_score_ref(q, h):
     qn = qf / torch.clamp_min(torch.linalg.norm(qf, dim=1, keepdim=True), 1e-9)
     hn = hf / torch.clamp_min(torch.linalg.norm(hf, dim=1, keepdim=True), 1e-9)
     return qn @ hn.T
+
+
+def greedy_assign_ref(d2, lam_eff: float, target: float):
+    """(n, k) squared distances → (n,) int32: row after row, the argmin of
+    ``d2[i] + lam·((2·counts − 2·target) + 1)`` (ties to the lowest j),
+    then ``counts[j] += 1`` — ``repro``'s ``_assign_greedy`` scan, in
+    float32, one PyTorch op per term so each rounds on its own."""
+    n, k = d2.shape
+    dev = d2.device
+    lam = torch.tensor(lam_eff, dtype=torch.float32, device=dev)
+    two_t = 2.0 * torch.tensor(target, dtype=torch.float32, device=dev)
+    counts = torch.zeros((k,), dtype=torch.float32, device=dev)
+    out = torch.empty((n,), dtype=torch.int64, device=dev)
+    d2 = d2.to(torch.float32)
+    for i in range(n):
+        pen = lam * ((2.0 * counts - two_t) + 1.0)
+        j = torch.argmin(d2[i] + pen)
+        counts[j] += 1.0
+        out[i] = j
+    return out.to(torch.int32)

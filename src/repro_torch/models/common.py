@@ -1,0 +1,282 @@
+"""Shared model machinery: parameter tables, norms, RoPE, blockwise attention.
+
+The port's counterpart of ``repro.models.common``.  Parameters are a flat
+``dict[str, torch.Tensor]``.  Each model family builds a ``param_table`` —
+``dict[name, ParamSpec]`` — from which init and the shapes derive.
+Layer-stacked params carry a leading "layers" axis and are consumed by a
+Python loop over layers (``repro`` scans them).
+
+Attention is blockwise (flash-style online softmax over KV chunks, inside
+an outer loop over query chunks) in plain PyTorch ops that follow
+``repro``'s step by step: ``repro`` keeps it in plain ``jnp`` (no Pallas
+kernel), so there is no kernel to port.  ``repro``'s sharding context is
+dropped: off a mesh its ``constrain`` is the identity.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+NEG_INF = -1e30
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16, "float64": torch.float64}
+
+
+def torch_dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else DTYPES[name]
+
+
+def acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype ``repro`` accumulates in, float32, or ``dt`` where that is
+    wider (a float64 model stays float64 throughout)."""
+    return torch.promote_types(dt, torch.float32)
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names (len == rank)
+    init: str = "normal"  # normal | zeros | ones
+    scale: Optional[float] = None  # stddev override; default 1/sqrt(fan_in)
+    dtype: Optional[str] = None
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def init_param(generator: torch.Generator, spec: ParamSpec, dtype: str,
+               device=None) -> torch.Tensor:
+    """One parameter drawn from ``generator`` on ``device`` (default: the
+    generator's).  ``fan_in`` is ``shape[-2]`` for rank ≥ 2, as in
+    ``repro``: for ``wq`` at ``(L, d, H, hd)`` that is H."""
+    dt = torch_dtype(spec.dtype or dtype)
+    device = generator.device if device is None else device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dt, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dt, device=device)
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    std = spec.scale if spec.scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
+    return (torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=device) * float(std)).to(dt)
+
+
+def init_params(table: Dict[str, ParamSpec], generator: torch.Generator,
+                dtype: str, device=None) -> Params:
+    """Every parameter of ``table``, drawn in sorted name order."""
+    return {n: init_param(generator, table[n], dtype, device)
+            for n in sorted(table)}
+
+
+def count_params(table: Dict[str, ParamSpec]) -> int:
+    return sum(int(np.prod(s.shape)) for s in table.values())
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+
+def scalar_in(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: multiplying a
+    tensor of that dtype by it rounds as a product of two ``dtype`` values
+    does (``repro`` casts the scalar first), and it makes no device tensor,
+    whose host-to-device copy would wait for the card."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt, at = x.dtype, acc_dtype(x.dtype)
+    xf = x.to(at)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + w.to(at))).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (
+        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                               device=device) / head_dim)
+    )
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int32."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)  # (D/2,)
+    at = acc_dtype(x.dtype)
+    ang = positions[..., None].to(at) * freqs  # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(at), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def glu_mlp(x, w_gate, w_up, w_down, act: str):
+    h_g = x @ w_gate.to(x.dtype)
+    h_u = x @ w_up.to(x.dtype)
+    if act == "swiglu":
+        h = F.silu(h_g) * h_u
+    elif act == "geglu":
+        h = F.gelu(h_g, approximate="tanh") * h_u
+    else:
+        raise ValueError(act)
+    return h @ w_down.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (online softmax over KV chunks)
+# ---------------------------------------------------------------------------
+
+def _pad_seq(x: torch.Tensor, pad: int, value=0) -> torch.Tensor:
+    """Pad axis 1 of ``x`` with ``pad`` trailing entries of ``value``."""
+    widths = [0, 0] * (x.dim() - 2) + [0, pad]
+    return F.pad(x, widths, value=value)
+
+
+def blockwise_attention(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    pos_q: torch.Tensor,  # (B, Sq) int32
+    pos_k: torch.Tensor,  # (B, Sk) int32; -1 marks an empty cache slot
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk: int = 1024,
+    q_chunk: Optional[int] = 512,
+) -> torch.Tensor:
+    """GQA/MQA blockwise attention; returns (B, Sq, Hq, D) in q.dtype.
+
+    An outer loop over QUERY chunks of ``q_chunk`` (the tail padded with
+    ``pos_q = -1``, then sliced off) wraps an inner loop over KV chunks of
+    ``chunk`` (a ragged tail padded with ``pos_k = -1``, masked everywhere)
+    carrying the online-softmax state, in float32 (float64 for a float64
+    model).  A fully masked query row (a pad row) ends as ``repro``'s does:
+    the mean of the values.
+    """
+    if q_chunk is not None and q.shape[1] > q_chunk:
+        Sq = q.shape[1]
+        qc = int(q_chunk)
+        pad = (-Sq) % qc
+        if pad:
+            q = _pad_seq(q, pad)
+            pos_q = _pad_seq(pos_q, pad, value=-1)
+        outs = [
+            blockwise_attention(
+                q[:, s:s + qc], k, v, pos_q[:, s:s + qc], pos_k,
+                causal=causal, window=window, chunk=chunk, q_chunk=None,
+            )
+            for s in range(0, q.shape[1], qc)
+        ]
+        return torch.cat(outs, dim=1)[:, :Sq]
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = float(1.0 / np.sqrt(D))
+    chunk = int(min(chunk, Sk))
+    if Sk % chunk:  # ragged tail: pad with pos_k = -1 (masked everywhere)
+        pad = chunk - Sk % chunk
+        k, v = _pad_seq(k, pad), _pad_seq(v, pad)
+        pos_k = _pad_seq(pos_k, pad, value=-1)
+        Sk += pad
+
+    at = acc_dtype(q.dtype)
+    qf = (q.to(at) * scale).reshape(B, Sq, Hkv, G, D)
+    acc = torch.zeros((B, Hkv, G, Sq, D), dtype=at, device=q.device)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=at, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=at, device=q.device)
+    for s0 in range(0, Sk, chunk):
+        k_c = k[:, s0:s0 + chunk].to(at)  # (B, c, Hkv, D)
+        v_c = v[:, s0:s0 + chunk].to(at)
+        pk_c = pos_k[:, s0:s0 + chunk]               # (B, c)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_c)  # (B,Hkv,G,Sq,c)
+        mask = pk_c[:, None, :] >= 0  # valid slot
+        if causal:
+            mask = mask & (pk_c[:, None, :] <= pos_q[:, :, None])
+        if window is not None:
+            mask = mask & ((pos_q[:, :, None] - pk_c[:, None, :]) < window)
+        s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_c)
+        m = m_new
+
+    out = acc / torch.clamp_min(l[..., None], 1e-20)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,      # (B, 1, Hq, D)
+    k: torch.Tensor,      # (B, S, Hkv, D)
+    v: torch.Tensor,      # (B, S, Hkv, D)
+    pos_q: torch.Tensor,  # (B, 1)
+    pos_k: torch.Tensor,  # (B, S); -1 marks empty slots
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token attention over the whole cache, no chunk loop.
+
+    The products take operands in the cache's dtype and accumulate in
+    float32 (``repro``'s ``preferred_element_type=float32``): the operands
+    are cast to float32, which is exact for bf16, so the scores stay fp32.
+    The softmax weights are rounded to the cache's dtype before the value
+    product, as in ``repro``.
+    """
+    B, _, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    at = acc_dtype(k.dtype)
+    qh = (q * scalar_in(1.0 / np.sqrt(D), q.dtype)).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qh.to(k.dtype).to(at), k.to(at))
+    mask = (pos_k >= 0) & (pos_k <= pos_q)  # (B, S)
+    if window is not None:
+        mask = mask & ((pos_q - pos_k) < window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).to(at), v.to(at))
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def cache_update(
+    cache_k: torch.Tensor,  # (B, S, Hkv, D)
+    cache_v: torch.Tensor,
+    cache_pos: torch.Tensor,  # (B, S) int32 positions per slot (-1 empty)
+    k_new: torch.Tensor,  # (B, 1, Hkv, D)
+    v_new: torch.Tensor,
+    t: torch.Tensor,  # (B,) int32 current decode position
+):
+    """Ring-buffer single-token cache update (uniform across archs); returns
+    new tensors and leaves the inputs as they were."""
+    S = cache_k.shape[1]
+    slot = (t % S).long()  # (B,)
+    b_idx = torch.arange(cache_k.shape[0], device=cache_k.device)
+    cache_k = cache_k.index_put((b_idx, slot), k_new[:, 0].to(cache_k.dtype))
+    cache_v = cache_v.index_put((b_idx, slot), v_new[:, 0].to(cache_v.dtype))
+    cache_pos = cache_pos.index_put((b_idx, slot), t.to(torch.int32))
+    return cache_k, cache_v, cache_pos
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean next-token CE in fp32; logits (B,S,V), labels (B,S)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

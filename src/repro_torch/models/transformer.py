@@ -1,0 +1,292 @@
+"""Decoder-only transformer LM, dense family (counterpart of
+``repro.models.transformer``).
+
+Parameters are ``repro``'s: the same flat names and layer-stacked
+``(L, …)`` layouts (``param_table``), so a ``repro`` parameter dict carries
+across as it is (``repro_torch.convert.lm_params_from_numpy``).  The
+methods take the parameters, as ``repro``'s do, and loop over the layers
+where ``repro`` scans.  Serving uses a uniform ring-buffer KV cache:
+``decode`` writes the new token's KV at ``slot = t % cache_len`` and attends
+over every valid slot, which covers full attention (cache_len == seq_len)
+and SWA rolling buffers (cache_len == window) with the same code.
+
+Each weight is used in the compute dtype (``repro`` casts it at every use);
+``compute_params`` makes that cast once, and the norm weights stay float32,
+which is the dtype ``rms_norm`` reads them in.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import (
+    ParamSpec,
+    Params,
+    apply_rope,
+    blockwise_attention,
+    cache_update,
+    cross_entropy,
+    decode_attention,
+    glu_mlp,
+    init_params,
+    rms_norm,
+    scalar_in,
+    torch_dtype,
+)
+
+NORMS = ("final_norm", "attn_norm", "mlp_norm")
+
+
+class TensorSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+class DecoderLM(nn.Module):
+    """The dense decoder.  Holds no tensors: ``init`` returns a parameter
+    dict, and ``forward`` (``loss``), ``prefill`` and ``decode`` take one."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.family != "dense" or cfg.moe is not None:
+            raise NotImplementedError(
+                f"DecoderLM: {cfg.name} is family {cfg.family!r}; the port "
+                "runs the dense family only (ROADMAP A6 ports MoE, then the "
+                "VLM patch prefix)")
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------ params
+    def param_table(self) -> Dict[str, ParamSpec]:
+        cfg = self.cfg
+        L, d, H, Hkv, hd, ff, V = (
+            cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+        )
+        t: Dict[str, ParamSpec] = {
+            "tok_embed": ParamSpec((V, d), ("vocab", "embed"), scale=0.02),
+            "final_norm": ParamSpec((d,), ("norm",), init="zeros"),
+        }
+        if not cfg.tie_embeddings:
+            t["lm_head"] = ParamSpec((d, V), ("embed", "vocab"))
+        lead, lax_ = (L,), ("layers",)
+        t.update({
+            "attn_norm": ParamSpec(lead + (d,), lax_ + ("norm",), init="zeros"),
+            "wq": ParamSpec(lead + (d, H, hd),
+                            lax_ + ("embed", "heads", "head_dim")),
+            "wk": ParamSpec(lead + (d, Hkv, hd),
+                            lax_ + ("embed", "kv_heads", "head_dim")),
+            "wv": ParamSpec(lead + (d, Hkv, hd),
+                            lax_ + ("embed", "kv_heads", "head_dim")),
+            "wo": ParamSpec(lead + (H, hd, d),
+                            lax_ + ("heads", "head_dim", "embed")),
+            "mlp_norm": ParamSpec(lead + (d,), lax_ + ("norm",), init="zeros"),
+        })
+        if cfg.qkv_bias:
+            t["bq"] = ParamSpec(lead + (H, hd), lax_ + ("heads", "head_dim"),
+                                init="zeros")
+            t["bk"] = ParamSpec(lead + (Hkv, hd),
+                                lax_ + ("kv_heads", "head_dim"), init="zeros")
+            t["bv"] = ParamSpec(lead + (Hkv, hd),
+                                lax_ + ("kv_heads", "head_dim"), init="zeros")
+        t["w_gate"] = ParamSpec(lead + (d, ff), lax_ + ("embed", "ff"))
+        t["w_up"] = ParamSpec(lead + (d, ff), lax_ + ("embed", "ff"))
+        t["w_down"] = ParamSpec(lead + (ff, d), lax_ + ("ff", "embed"))
+        return t
+
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        """Random parameters from ``generator`` (on its device unless
+        ``device`` is given), in ``param_dtype``."""
+        return init_params(self.param_table(), generator, self.cfg.param_dtype,
+                           device)
+
+    def compute_params(self, params: Params) -> Params:
+        """The parameters as every use reads them: cast once to the compute
+        dtype, the norm weights left as they are (``rms_norm`` reads them in
+        float32).  The same tensors when they already are."""
+        dt = torch_dtype(self.cfg.compute_dtype)
+        return {n: p if n in NORMS else p.to(dt) for n, p in params.items()}
+
+    # ----------------------------------------------------------------- pieces
+    def _layer_names(self):
+        names = ["attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"]
+        if self.cfg.qkv_bias:
+            names += ["bq", "bk", "bv"]
+        return names + ["w_gate", "w_up", "w_down"]
+
+    def _layer(self, params: Params, i: int) -> Params:
+        return {n: params[n][i] for n in self._layer_names()}
+
+    def _attn_proj_qkv(self, p, h, pos):
+        cfg = self.cfg
+        dt = h.dtype
+        B, S, d = h.shape
+
+        def proj(w):
+            return (h @ w.to(dt).reshape(d, -1)).reshape(B, S, *w.shape[1:])
+
+        q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(dt)
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        return q, k, v
+
+    def _attn_out(self, p, attn, dt):
+        B, S = attn.shape[:2]
+        wo = p["wo"].to(dt)
+        return attn.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+    def _mlp(self, p, h):
+        return glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"], self.cfg.mlp_act)
+
+    def _layer_full(self, p, x, pos):
+        """Full-sequence layer (train / prefill). Returns (x, (k, v))."""
+        cfg = self.cfg
+        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        q, k, v = self._attn_proj_qkv(p, h, pos)
+        attn = blockwise_attention(
+            q, k, v, pos, pos,
+            causal=True, window=cfg.window, chunk=cfg.attn_chunk,
+        )
+        x = x + self._attn_out(p, attn, x.dtype)
+        h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        return x + self._mlp(p, h2), (k, v)
+
+    def _layer_decode(self, p, x, cache_k, cache_v, cache_pos, t):
+        """Single-token layer. x: (B,1,D). Returns (x, new_k, new_v, pos)."""
+        cfg = self.cfg
+        h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        pos_q = t[:, None]  # (B,1)
+        q, k, v = self._attn_proj_qkv(p, h, pos_q)
+        ck, cv, cp = cache_update(cache_k, cache_v, cache_pos, k, v, t)
+        attn = decode_attention(q, ck, cv, pos_q, cp, window=cfg.window)
+        x = x + self._attn_out(p, attn, x.dtype)
+        h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        return x + self._mlp(p, h2), ck, cv, cp
+
+    # ------------------------------------------------------------- embeddings
+    def _embed_tokens(self, params, tokens):
+        cfg = self.cfg
+        dt = torch_dtype(cfg.compute_dtype)
+        emb = params["tok_embed"].to(dt)
+        x = emb[torch.as_tensor(tokens).to(emb.device).long()]
+        if cfg.tie_embeddings:  # gemma-style embed scaling
+            x = x * scalar_in(np.sqrt(cfg.d_model), dt)
+        return x
+
+    def _logits(self, params, x):
+        dt = x.dtype
+        head = (
+            params["tok_embed"].to(dt).T
+            if self.cfg.tie_embeddings
+            else params["lm_head"].to(dt)
+        )
+        return x @ head
+
+    # ------------------------------------------------------------------ modes
+    def _stack_full(self, params, x, pos, collect_kv: bool):
+        S = x.shape[1]
+        C = self.cache_len(S)  # SWA: keep only the trailing window
+        ks, vs = [], []
+        for i in range(self.cfg.num_layers):
+            x, (k, v) = self._layer_full(self._layer(params, i), x, pos)
+            if collect_kv:
+                ks.append(k[:, S - C:] if C < S else k)
+                vs.append(v[:, S - C:] if C < S else v)
+        kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+        return x, kvs
+
+    @staticmethod
+    def _positions(B: int, S: int, device) -> torch.Tensor:
+        return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+    def loss(self, params, batch):
+        """Mean next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (label -1 is ignored); returns (loss, metrics)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, batch["tokens"])
+        labels = torch.as_tensor(batch["labels"], device=x.device)
+        B, S, _ = x.shape
+        x, _ = self._stack_full(params, x, self._positions(B, S, x.device),
+                                collect_kv=False)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x)
+        mask = (labels[:, 1:] >= 0).to(torch.float32)
+        ce = cross_entropy(logits[:, :-1], torch.clamp_min(labels[:, 1:], 0),
+                           mask)
+        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+
+    forward = loss
+
+    def prefill(self, params, batch, capacity: Optional[int] = None):
+        """capacity: total positions the cache must hold (prompt + planned
+        new tokens); defaults to the prompt length.  Returns (last-position
+        logits (B, V), cache)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, batch["tokens"])
+        B, S, _ = x.shape
+        pos = self._positions(B, S, x.device)
+        x, (ks, vs) = self._stack_full(params, x, pos, collect_kv=True)
+        x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x)[:, 0]
+        return logits, self._cache_from_prefill(ks, vs, pos, S, capacity)
+
+    def _cache_from_prefill(self, ks, vs, pos, S, capacity=None):
+        """ks, vs: (L, B, C', Hkv, hd) with C' = min(S, cache_len(S))."""
+        C = self.cache_len(max(capacity or S, S))
+        if C > S:  # headroom for decode: empty slots marked pos = -1
+            pad = (0, 0, 0, 0, 0, C - S)
+            ks = torch.nn.functional.pad(ks, pad)
+            vs = torch.nn.functional.pad(vs, pad)
+            cache_pos = torch.nn.functional.pad(pos, (0, C - S), value=-1)
+            return {"k": ks, "v": vs, "pos": cache_pos.to(torch.int32)}
+        if C < S:  # SWA rolling buffer keeps the trailing window
+            # slot for position p is p % C; trailing window is a rotation
+            ks, vs = ks[:, :, -C:], vs[:, :, -C:]
+            pos_tail = pos[:, -C:]
+            shift = (pos_tail[:, 0] % C).tolist()
+            ks = torch.stack([torch.roll(ks[:, b], s, dims=1)
+                              for b, s in enumerate(shift)], dim=1)
+            vs = torch.stack([torch.roll(vs[:, b], s, dims=1)
+                              for b, s in enumerate(shift)], dim=1)
+            cache_pos = torch.stack([torch.roll(pos_tail[b], s, dims=0)
+                                     for b, s in enumerate(shift)])
+        else:
+            cache_pos = pos
+        return {"k": ks, "v": vs, "pos": cache_pos.to(torch.int32)}
+
+    def cache_len(self, seq_len: int) -> int:
+        cfg = self.cfg
+        return min(seq_len, cfg.window) if cfg.window else seq_len
+
+    def cache_specs(self, batch: int, seq_len: int) -> Dict[str, TensorSpec]:
+        cfg = self.cfg
+        C = self.cache_len(seq_len)
+        kv = TensorSpec(
+            (cfg.num_layers, batch, C, cfg.num_kv_heads, cfg.head_dim),
+            torch_dtype(cfg.compute_dtype),
+        )
+        return {"k": kv, "v": kv, "pos": TensorSpec((batch, C), torch.int32)}
+
+    def decode(self, params, tokens, cache, t):
+        """tokens: (B,1); t: (B,) current position. Returns (logits, cache)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, tokens)
+        cache_pos = cache["pos"]
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            x, ck, cv, cache_pos = self._layer_decode(
+                self._layer(params, i), x, cache["k"][i], cache["v"][i],
+                cache_pos, t)
+            ks.append(ck)
+            vs.append(cv)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x)[:, 0]
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
+                        "pos": cache_pos}

@@ -1,14 +1,25 @@
-"""Serving (counterpart of ``repro.serve``): ``ServeDaemon``.  The RAG
-pipeline and the LM engine are not ported yet (ROADMAP A6)."""
+"""Serving (counterpart of ``repro.serve``): ``ServeDaemon``, the LM
+``ServeEngine`` and the retrieval-augmented ``RagPipeline``."""
 
-__all__ = ["PendingResult", "SearchRequest", "ServeDaemon"]
+_MODULES = {
+    "GenerationResult": "engine",
+    "ServeEngine": "engine",
+    "RagPipeline": "retrieval",
+    "RagResult": "retrieval",
+    "PendingResult": "daemon",
+    "SearchRequest": "daemon",
+    "ServeDaemon": "daemon",
+}
+
+__all__ = sorted(_MODULES)
 
 
 def __getattr__(name):
-    # the daemon lazily: `python -m repro_torch.serve.daemon` would otherwise
-    # import the module twice (runpy RuntimeWarning) via this package
-    if name in __all__:
-        from repro_torch.serve import daemon
+    # lazily: `python -m repro_torch.serve.daemon` would otherwise import
+    # the module twice (runpy RuntimeWarning) via this package
+    if name in _MODULES:
+        import importlib
 
-        return getattr(daemon, name)
+        module = importlib.import_module(f"repro_torch.serve.{_MODULES[name]}")
+        return getattr(module, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,11 +1,11 @@
 """Long-running serving daemon: a request queue in front of
-``GateIndex.search``, per-request latency into ``LATENCY_BUCKETS``, a rolling
-SLO window, an optional adaptive controller or hardness router, and the
-whole registry exposed on ``GET /metrics``.
+``GateIndex.search`` / ``RagPipeline``, per-request latency into
+``LATENCY_BUCKETS``, a rolling SLO window, an optional adaptive controller
+or hardness router, and the whole registry exposed on ``GET /metrics``.
 
 Architecture — one worker thread, everything else observes it:
 
-    submit() ──► queue ──► worker ──► index.search / search_routed
+    submit() ──► queue ──► worker ──► index.search / search_routed / pipeline()
                              │            (current ladder rung, instrumented)
                              ├─► registry   search.latency_seconds, search.*
                              ├─► window     summarize(tele) + latency_s
@@ -62,6 +62,10 @@ class SearchRequest:
     # per-request search config: overrides the daemon's base SearchParams;
     # the ladder rung / router still set beam_width + max_hops
     params: Optional[SearchParams] = None
+    # RAG: when the daemon has a pipeline and the request carries prompts,
+    # the worker generates instead of bare search
+    prompt_tokens: Optional[np.ndarray] = None
+    max_new_tokens: int = 16
 
 
 class PendingResult:
@@ -86,18 +90,21 @@ class PendingResult:
 
 
 class ServeDaemon:
-    """Queue-driven search serving with live metrics and adaptation.
+    """Queue-driven search / RAG serving with live metrics and adaptation.
 
     ``device`` is where the index is searched (default ``"cuda"``).  A
     routed daemon returns ``(SearchResult, SearchTelemetry)`` of host numpy
     arrays per request; an unrouted one the tensors of ``GateIndex.search``.
+    A request with ``prompt_tokens`` to a daemon with a ``pipeline``
+    (``repro_torch.serve.RagPipeline``, which searches on its own device)
+    returns the pipeline's ``RagResult``.
     """
 
     def __init__(
         self,
         index: GateIndex,
         *,
-        pipeline=None,
+        pipeline=None,                 # optional RagPipeline
         ladder: Sequence[LadderRung] = DEFAULT_LADDER,
         adaptive: bool = True,
         level: Optional[int] = None,
@@ -118,11 +125,8 @@ class ServeDaemon:
         window_log_every: int = 8,
         device="cuda",
     ):
-        if pipeline is not None:
-            raise NotImplementedError(
-                "ServeDaemon(pipeline=...): the RAG pipeline and the LM stack "
-                "are not ported yet (ROADMAP A6)")
         self.index = index
+        self.pipeline = pipeline
         self.device = device
         self.ladder = tuple(ladder)
         self.adaptive = adaptive
@@ -151,6 +155,10 @@ class ServeDaemon:
             if route
             else None
         )
+        if pipeline is not None:
+            # the pipeline owns window pushes + controller steps on RAG path
+            pipeline.controller = self.controller
+            pipeline.instrument = True
         # feedback loop: query-log capture + shadow labeling + predictor
         # hot-reload; all host-side, outside the search
         self.qlog = QueryLog(qlog) if isinstance(qlog, str) else qlog
@@ -307,6 +315,13 @@ class ServeDaemon:
             pending._fulfil(result=result)
 
     def _serve_one(self, req: SearchRequest):
+        if self.pipeline is not None and req.prompt_tokens is not None:
+            # RAG path: the pipeline searches at the controller's rung,
+            # pushes its own window summary and steps the controller
+            return self.pipeline(
+                req.queries, req.prompt_tokens,
+                max_new_tokens=req.max_new_tokens,
+            )
         base = req.params if req.params is not None else self.base_params
         base = base.replace(k=req.k, instrument=True)
         t0 = time.perf_counter()

@@ -1,14 +1,16 @@
-"""AdamW with ``repro.train.optim.adamw``'s functional API and arithmetic.
+"""Optimizers with ``repro.train.optim``'s functional API and arithmetic.
 
-    opt = adamw(lr=3e-4)
+    opt = adamw(lr=3e-4, warmup=100, total_steps=10_000)
     state = opt.init(params)                 # params: dict of tensors
     params, state, gnorm = opt.apply(params, grads, state)
 
-Its own implementation rather than ``torch.optim``, so one step computes
-what ``repro``'s does (bias corrections in float32 from an int32 step).
+Their own implementation rather than ``torch.optim``, so one step computes
+what ``repro``'s does (bias corrections and the learning-rate schedule in
+float32 from an int32 step).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -29,6 +31,28 @@ def clip_by_global_norm(tree: Params, max_norm: float):
     return {k: (x * scale).to(x.dtype) for k, x in tree.items()}, g
 
 
+def warmup_cosine(lr: float, warmup: int, total_steps: int,
+                  final_frac: float = 0.1):
+    """Linear warmup to ``lr``, then cosine decay to ``final_frac * lr`` at
+    ``total_steps``; ``schedule(step)`` takes an int32 step tensor and
+    returns a float32 scalar tensor."""
+    def schedule(step):
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = lr * torch.clamp(step / max(warmup, 1), max=1.0)
+        prog = torch.clamp(
+            (step - warmup) / max(total_steps - warmup, 1), 0.0, 1.0
+        )
+        cos = lr * (final_frac + (1 - final_frac) * 0.5
+                    * (1 + torch.cos(math.pi * prog)))
+        return torch.where(step < warmup, warm, cos)
+
+    return schedule
+
+
+def constant_lr(lr: float):
+    return lambda step: torch.full((), lr, dtype=torch.float32)
+
+
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable
@@ -45,13 +69,11 @@ def adamw(
     warmup: int = 0,
     total_steps: int = 0,
 ) -> Optimizer:
-    """Constant learning rate; ``repro``'s warmup-cosine schedule is not
-    ported (the two-tower training uses the constant rate)."""
-    if warmup or total_steps:
-        raise NotImplementedError(
-            "adamw(warmup=, total_steps=): the learning-rate schedule waits "
-            "for the deferred build pieces of the port (ROADMAP A4)"
-        )
+    """``warmup_cosine(lr, warmup, total_steps)`` when ``total_steps`` is
+    set, else the constant rate."""
+    sched = (
+        warmup_cosine(lr, warmup, total_steps) if total_steps else constant_lr(lr)
+    )
 
     def init(params: Params):
         return {
@@ -67,7 +89,7 @@ def adamw(
             gnorm = global_norm(grads)
         step = state["step"] + 1
         stepf = step.to(torch.float32)
-        lr_t = torch.tensor(lr, dtype=torch.float32)
+        lr_t = sched(step)
         b1t = 1 - torch.tensor(b1, dtype=torch.float32) ** stepf
         b2t = 1 - torch.tensor(b2, dtype=torch.float32) ** stepf
         new_p, new_m, new_v = {}, {}, {}
@@ -84,5 +106,24 @@ def adamw(
             new_p[k] = (p.to(torch.float32) - lr_t.to(dev) * delta).to(p.dtype)
             new_m[k], new_v[k] = m2, v2
         return new_p, {"m": new_m, "v": new_v, "step": step}, gnorm
+
+    return Optimizer(init=init, apply=apply)
+
+
+def sgd(lr: float = 1e-2, momentum: float = 0.0) -> Optimizer:
+    def init(params: Params):
+        return {
+            "m": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32),
+        }
+
+    def apply(params: Params, grads: Params, state):
+        gnorm = global_norm(grads)
+        new_p, new_m = {}, {}
+        for k, p in params.items():
+            m2 = momentum * state["m"][k] + grads[k].to(torch.float32)
+            new_p[k] = (p.to(torch.float32) - lr * m2).to(p.dtype)
+            new_m[k] = m2
+        return new_p, {"m": new_m, "step": state["step"] + 1}, gnorm
 
     return Optimizer(init=init, apply=apply)

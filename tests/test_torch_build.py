@@ -154,8 +154,10 @@ def test_hbkm_assignment_equal(small_db):
     ta, tc = t_hbkm.hbkm(db, 24, device=CPU)
     assert np.mean(ja == ta) >= 0.99
     np.testing.assert_allclose(tc, jc, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="greedy"):
-        t_hbkm.balanced_kmeans(db, 4, mode="greedy", device=CPU)
+    # greedy is ported (tests/test_torch_build_ablations.py); an unknown
+    # mode raises as in repro
+    with pytest.raises(ValueError, match="bogus"):
+        t_hbkm.balanced_kmeans(db, 4, mode="bogus", device=CPU)
 
 
 def test_subgraphs_topo_samples_exact(small_db, small_nsg):

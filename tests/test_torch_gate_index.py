@@ -125,8 +125,19 @@ def test_port_built_index_quality(port_built):
 
 
 def test_unported_config_flags_raise():
-    db = np.zeros((8, 4), np.float32)
+    """The two ablation flags that raised before they were ported now
+    build: ``hop_mode="bfs"`` takes the BFS hop counts (a hub is 0 hops
+    from itself) and ``use_hbkm=False`` the k-means hubs (parity with
+    ``repro`` is tests/test_torch_build_ablations.py)."""
+    rng = np.random.default_rng(0)
+    db = rng.standard_normal((24, 4)).astype(np.float32)
+    nbrs = np.stack([(np.arange(24) + s) % 24 for s in (1, 2, 5)], axis=1)
     for flag in ({"hop_mode": "bfs"}, {"use_hbkm": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GateIndex.from_graph(db, np.zeros((8, 2), np.int32), 0, db,
-                                 GateConfig(**flag), device="cpu")
+        idx = GateIndex.from_graph(
+            db, nbrs.astype(np.int32), 0, db,
+            GateConfig(n_hubs=3, epochs=2, batch_hubs=3, subgraph_max_nodes=8,
+                       **flag), device="cpu")
+        assert idx.hubs.n == 3 and idx.gcfg == GateConfig(
+            n_hubs=3, epochs=2, batch_hubs=3, subgraph_max_nodes=8, **flag)
+        hops = idx.build_report["samples"]
+        assert hops["pos_mean"] > 0

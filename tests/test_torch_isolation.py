@@ -107,13 +107,17 @@ def test_entry_points_default_to_the_card():
 
 
 def test_public_surface_resolves_without_jax():
-    """Every name of ``repro_torch.__all__`` (``repro``'s export table less
-    the unported ``RagPipeline``) and of ``repro_torch.core`` /
-    ``repro_torch.graphs`` resolves, in a fresh interpreter that has loaded
-    neither ``jax`` nor ``repro`` afterwards."""
+    """Every name of ``repro_torch.__all__`` (``repro``'s export table, plus
+    ``exact_knn`` and ``recall_at_k``) and of ``repro_torch.core`` /
+    ``repro_torch.graphs`` / ``repro_torch.models`` / ``repro_torch.serve``
+    resolves, and the LM configs, models and launcher import, in a fresh
+    interpreter that has loaded neither ``jax`` nor ``repro`` afterwards."""
     code = (
         "import sys, repro_torch, repro_torch.core as c, repro_torch.graphs as g\n"
-        "for m in (repro_torch, c, g):\n"
+        "import repro_torch.models as mo, repro_torch.serve as sv\n"
+        "import repro_torch.configs as cf, repro_torch.launch.serve\n"
+        "import repro_torch.core.baselines, repro_torch.train.optim\n"
+        "for m in (repro_torch, c, g, mo, sv, cf):\n"
         "    for n in m.__all__:\n"
         "        assert getattr(m, n) is not None, n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
@@ -135,11 +139,42 @@ def test_public_surface_resolves_without_jax():
         "search_jit_cache_size", "HardnessPredictor", "load_predictor",
         "GateConfig", "GateIndex", "SearchParams", "SearchResult",
         "SearchTelemetry", "batched_search", "build_nsg", "summarize",
-        "exact_knn", "recall_at_k",
+        "exact_knn", "recall_at_k", "RagPipeline",
     }
-    assert set(repro_torch.__all__) == want
+    assert set(repro_torch.__all__) == want and len(want) == 34
     assert int(out.stdout.strip()) == len(want)
-    from repro_torch.core import cluster_size_variance, hbkm  # noqa: F401
+    from repro_torch.core import (  # noqa: F401
+        cluster_size_variance, hbkm, hop_counts, kmeans_hubs)
     from repro_torch.graphs import search_jit_cache_size  # noqa: F401
-    with pytest.raises(AttributeError):
-        repro_torch.RagPipeline
+    from repro_torch.serve.retrieval import RagPipeline
+
+    assert repro_torch.RagPipeline is RagPipeline
+
+
+def test_new_subpackages_are_scanned():
+    """The scan of the first test covers the LM stack's subpackages."""
+    files = {f.relative_to(ROOT / "src" / "repro_torch").parts[0]
+             for f in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert {"configs", "models", "launch", "serve", "train", "core"} <= files
+
+
+def test_lm_entry_points_default_to_the_card():
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import build_model, make_cache, make_inputs
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.retrieval import RagPipeline
+
+    cfg = get_reduced("gemma-2b")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    if torch.cuda.is_available():
+        assert ServeEngine(cfg, params).device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        ServeEngine(cfg, params)
+    with pytest.raises((AssertionError, RuntimeError)):
+        make_cache(cfg, 1, 8)
+    from repro_torch.configs.base import ShapeSpec
+
+    with pytest.raises((AssertionError, RuntimeError)):
+        make_inputs(cfg, ShapeSpec("s", "decode", 8, 1))
+    assert RagPipeline(None, None, np.zeros((2, 2), np.int32)).device == "cuda"

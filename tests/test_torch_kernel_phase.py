@@ -96,8 +96,12 @@ def test_kernel_and_api_phases_rehearsal(rehearsal, with_baseline):
     counts = dict.fromkeys(chip_smoke.SOURCES, 3)
     single = {"shape": [1, 247], "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.1,
               "bound_by": "bytes", "max_abs_err": 0.0}
+    greedy = {lbl: {"shape": [n, 8], "ms": 1.0, "plain_ms": 9.0,
+                    "library_ms": None, "bound_ms": 0.01, "bound_by": "bytes",
+                    "max_abs_err": 0.0}
+              for lbl, n in (("slice", 300), ("root_split", 900))}
     line = chip_smoke.kernels_line(kres, api, hop, counts, counts, counts,
-                                   single)
+                                   single, greedy, counts, counts)
     json.dumps({"kernels": line})
     by = {e["name"]: e for e in line}
     assert list(by) == list(chip_smoke.SOURCES)
@@ -107,8 +111,15 @@ def test_kernel_and_api_phases_rehearsal(rehearsal, with_baseline):
         assert keys <= set(e)
     assert by["twotower_score"]["shape"] == [90, 64, 128]
     assert by["twotower_score"]["serve_shape"]["shape"] == [48, 64, 128]
-    assert by["twotower_score"]["launches"] == 9  # search, serve, feedback
+    # search, serve, feedback, ablations, rag
+    assert by["twotower_score"]["launches"] == 15
     assert by["twotower_score"]["launches_by_path"]["feedback"] == 3
+    assert by["twotower_score"]["launches_by_path"]["rag"] == 3
+    assert by["greedy_assign"]["launches_by_path"] == {"ablations": 3}
+    assert by["greedy_assign"]["shape"] == [300, 8]
+    assert by["greedy_assign"]["root_split_shape"]["shape"] == [900, 8]
+    assert by["greedy_assign"]["library_ms"] is None
+    assert by["greedy_assign"]["replaces"].startswith("none (port-only")
     assert set(by["topk_min"]["launches_by_path"]) == {"api"}
     assert by["l2dist"]["composed_shape"]["shape"] == [32, 1500, 128]
     assert by["topk_min"]["composed_shape"]["shape"] == [32, 1500, 10]

@@ -13,6 +13,7 @@ bits, and each launch plan equals the wrapper module's ``plan``.  K4
 ``topk_min``: indices and values equal.  K5 ``l2dist`` and K6 ``gather_dist``
 (dot form against the plain difference form): rtol=2e-5, atol=2e-4 in fp32,
 1e-2 from bf16, as tests/test_kernels.py holds the TPU kernels.
+``greedy_assign`` (port-only): every assignment equal to the plain version's.
 """
 import importlib
 
@@ -411,3 +412,46 @@ def test_gather_dist_reads_only_the_sign_of_an_id(cuda, D, view):
     assert bool((got[::3] == float(INF32)).all())
     _assert_masked(got.cpu(), ref.gather_dist_ref(vecs, q, idt).cpu(), ids,
                    2e-5, 2e-4)
+
+
+def _greedy_d2(rng, n, k, case):
+    """(n, k) squared distances: "real" from points and centres as hbkm
+    computes them; "ties" small integers (ties on most rows, one row all
+    tied); "tied" every row all tied (the penalty alone decides)."""
+    if case == "real":
+        x = rng.standard_normal((n, 16)).astype(np.float32)
+        c = x[rng.choice(n, size=min(k, n), replace=n < k)]
+        d2 = ((x * x).sum(1, keepdims=True) - 2.0 * x @ c.T
+              + (c * c).sum(1)[None, :]).astype(np.float32)
+    elif case == "ties":
+        d2 = rng.integers(0, 3, (n, k)).astype(np.float32)
+        d2[n // 2] = 1.0
+    else:
+        d2 = np.full((n, k), 2.5, np.float32)
+    return d2
+
+
+GREEDY_CASES = ([(k, n, "real") for k in (2, 8, 32) for n in (1, 1000, 20000)]
+                + [(k, n, c) for k in (2, 8, 32) for n in (1, 1000)
+                   for c in ("ties", "tied")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,case", GREEDY_CASES)
+def test_greedy_assign_kernel_matches_plain(cuda, k, n, case):
+    from repro_torch.kernels import greedy_assign
+
+    rng = np.random.default_rng(n + k)
+    d2 = _greedy_d2(rng, n, k, case)
+    lam = float(np.float32(0.37 if case == "real" else 0.5))
+    target = float(np.float32(n) / np.float32(k))
+    before = launch_counts()["greedy_assign"]
+    got = greedy_assign(torch.from_numpy(d2).to(cuda), lam, target)
+    assert launch_counts()["greedy_assign"] == before + 1
+    want = ref.greedy_assign_ref(torch.from_numpy(d2), lam, target)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    counts = np.bincount(want.numpy(), minlength=k)
+    assert counts.sum() == n
+    if case == "tied":  # the penalty alone: round robin over the clusters
+        assert counts.max() - counts.min() <= 1

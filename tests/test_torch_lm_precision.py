@@ -1,0 +1,150 @@
+"""LM stack precision: the port's bf16 compute against ``repro``'s, the
+one-time bf16 weight copy against a cast at every use, and the float32
+prefill/decode gap of a random gemma-2b, on the CPU.
+
+``repro`` draws the weights (``jax.random``); ``convert.lm_params_from_numpy``
+carries them across.  Tolerances are stated in each test.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs import get_reduced as j_get_reduced
+from repro.models.model import build_model as j_build_model
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.models.model import build_model
+
+from test_torch_search import one_torch_thread  # noqa: F401  (autouse)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.asarray(a).dtype))
+
+
+def _decode_chain(prefill, decode, toks, S, steps):
+    """Prefill logits and cache of ``toks[:, :S]``, then ``steps`` decodes:
+    the list of logits and the last cache."""
+    B = toks.shape[0]
+    logits, cache = prefill(toks[:, :S], S + steps)
+    out = [logits]
+    for i in range(steps):
+        logits, cache = decode(toks[:, S + i:S + i + 1],
+                               np.full((B,), S + i, np.int32), cache)
+        out.append(logits)
+    return out, cache
+
+
+def _mean_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).mean() / np.abs(want).mean())
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "llama3-8b"])
+def test_prefill_then_decode_match_bfloat16(arch):
+    """bf16 compute (what the engine serves) against ``repro``'s on the
+    same weights: prefill logits and cache, then 4 decode steps.  The two
+    round bf16 in different places (XLA keeps excess precision inside its
+    fusions), so each step is held to a mean relative error of 3e-2; it
+    reads up to 2.1e-2 here.  A decode attention whose scores round to
+    bf16, or an unrounded gemma embedding scale, reads 5e-2 or more on
+    some step."""
+    B, S, steps = 2, 40, 4
+    jcfg = j_get_reduced(arch).with_(remat=False, compute_dtype="bfloat16")
+    tcfg = get_reduced(arch).with_(compute_dtype="bfloat16")
+    jm, tm = j_build_model(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(1))
+    tp = tm.compute_params(lm_params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, jp), device="cpu"))
+    toks = np.random.default_rng(3).integers(
+        2, tcfg.vocab_size, (B, S + steps)).astype(np.int32)
+    want, jcache = _decode_chain(
+        lambda t, cap: jm.prefill(jp, {"tokens": jnp.asarray(t)},
+                                  capacity=cap),
+        lambda t, pos, c: jm.decode(jp, jnp.asarray(t), c, jnp.asarray(pos)),
+        toks, S, steps)
+    with torch.no_grad():
+        got, tcache = _decode_chain(
+            lambda t, cap: tm.prefill(tp, {"tokens": _t(t)}, capacity=cap),
+            lambda t, pos, c: tm.decode(tp, _t(t), c, _t(pos)),
+            toks, S, steps)
+    assert got[0].dtype == torch.bfloat16
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _mean_rel(g.float(), w) <= 3e-2, (arch, i)
+    for f in ("k", "v"):
+        assert tcache[f].dtype == torch.bfloat16
+        assert _mean_rel(tcache[f].float(), jcache[f]) <= 3e-2, (arch, f)
+    np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                  np.asarray(jcache["pos"]))
+
+
+def test_one_time_bf16_copy_is_a_cast_at_every_use():
+    """The engine's weights, cast to bf16 once, give the bits that the
+    float32 weights give when every use casts them (``repro``'s rule)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_reduced("gemma-2b").with_(compute_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    engine = ServeEngine(cfg, params, device="cpu")
+    for n, p in engine.compute_params.items():
+        want = p if n.endswith("norm") else params[n].to(torch.bfloat16)
+        assert torch.equal(p, want) and p.dtype == want.dtype, n
+    toks = np.random.default_rng(5).integers(
+        2, cfg.vocab_size, (2, 24)).astype(np.int32)
+    with torch.no_grad():
+        chains = [_decode_chain(
+            lambda t, cap: model.prefill(p, {"tokens": _t(t)}, capacity=cap),
+            lambda t, pos, c: model.decode(p, _t(t), c, _t(pos)),
+            toks, 20, 4) for p in (params, engine.compute_params)]
+    (every_use, c1), (once, c2) = chains
+    for a, b in zip(every_use, once):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert all(torch.equal(c1[f], c2[f]) for f in ("k", "v", "pos"))
+
+
+def test_float32_prefill_decode_gap_is_the_references():
+    """End to end, float32 prefill(S + 1) and prefill(S) + decode disagree
+    in ``repro`` itself on a random gemma-2b: its init (fan-in
+    ``shape[-2]``, so ``wq``'s std is 1/sqrt(H)) makes attention almost
+    one-hot, and a sum in another order can pick another key.  At
+    gemma-2b's layout narrowed to d 512, d_ff 2048 and vocab 512 (18
+    layers, 8 heads of 256, one KV head), ``repro``'s gap reads 1.8
+    relative; the port's, in float64 on the same weights, 4.7e-12.  So a
+    float32 gap is the model's, and the float64 one is what holds the
+    port's decode to its prefill (as ``chip_smoke.py`` does at full
+    width)."""
+    kw = dict(d_model=512, d_ff=2048, vocab_size=512, param_dtype="float32",
+              compute_dtype="float32")
+    jcfg = j_get_config("gemma-2b").with_(remat=False, **kw)
+    tcfg = get_config("gemma-2b").with_(**{**kw, "compute_dtype": "float64"})
+    assert (tcfg.num_layers, tcfg.num_heads, tcfg.num_kv_heads,
+            tcfg.head_dim) == (18, 8, 1, 256)
+    B, S = 2, 64
+    jm, tm = j_build_model(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    toks = np.random.default_rng(0).integers(
+        2, tcfg.vocab_size, (B, S + 1)).astype(np.int32)
+    t = np.full((B,), S, np.int32)
+
+    full, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)})
+    _, cache = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :S])},
+                          capacity=S + 1)
+    step, _ = jm.decode(jp, jnp.asarray(toks[:, S:]), cache, jnp.asarray(t))
+    full, step = np.asarray(full), np.asarray(step)
+    assert np.isfinite(full).all() and np.isfinite(step).all()
+    assert np.abs(step - full).max() / np.abs(full).max() > 0.1
+
+    tp = tm.compute_params(lm_params_from_numpy(
+        tcfg, jax.tree.map(np.asarray, jp), device="cpu"))
+    assert tp["wq"].dtype == torch.float64
+    with torch.no_grad():
+        full, _ = tm.prefill(tp, {"tokens": _t(toks)})
+        _, cache = tm.prefill(tp, {"tokens": _t(toks[:, :S])}, capacity=S + 1)
+        step, _ = tm.decode(tp, _t(toks[:, S:]), cache, _t(t))
+    assert full.dtype == torch.float64
+    assert float((step - full).abs().max() / full.abs().max()) < 1e-9

@@ -443,11 +443,16 @@ def test_routed_daemon_writes_the_query_log(tmp_path, pair):
 
 
 def test_daemon_unported_parts_raise(pair):
-    """The RAG pipeline is not ported; the predictor reload is, and raises
-    where ``repro``'s does: without ``predictor_dir`` or without routing."""
+    """The RAG pipeline is ported now: the daemon wires its controller into
+    it (tests/test_torch_rag.py serves through it).  The predictor reload
+    raises where ``repro``'s does: without ``predictor_dir`` or without
+    routing."""
+    import types
+
     _, tidx = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ServeDaemon(tidx, pipeline=object(), device="cpu")
+    pipe = types.SimpleNamespace(controller=None, instrument=False)
+    daemon = ServeDaemon(tidx, pipeline=pipe, device="cpu")
+    assert pipe.controller is daemon.controller and pipe.instrument
     with pytest.raises(RuntimeError, match="no predictor_dir"):
         ServeDaemon(tidx, route=True, device="cpu").reload_predictor()
     with pytest.raises(RuntimeError, match="requires route=True"):
