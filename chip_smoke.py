@@ -88,11 +88,25 @@ Run from the root of a checkout:
    decode seconds from the spans, tokens/s, resident weight bytes; one
    more request under torch.profiler (device busy and idle share, kernels
    launched).
+12. MoE RAG phase, after phase 11's model is freed: the router's tie case
+   in bf16 on the card (ties to the lowest expert id); internvl2-26b at its
+   published width cut to 2 layers in float64 (prefill of 1024 patches +
+   S + 1 tokens against the patches + S tokens then one decode, 1e-6);
+   then qwen2-moe-a2.7b at its published width and depth (24 layers, 60
+   experts top-4 + 4 shared, dense dispatch), weights drawn on the card
+   straight into bf16 (at most 34 GB resident), behind the same kind of
+   RagPipeline: finite logits, two greedy generations equal; on its first
+   two layers at full width, float64 prefill(S+1) against prefill(S) +
+   decode (1e-6), the dropping dispatch at capacity E/K against the dense
+   one (1e-9) and the share dropped at 1.25, float32 layer by layer
+   (1e-3); then 8 requests of 32 queries served as in phase 11, each
+   held against a plain search at its rung, and the decode step set
+   beside its bounds.
 
-Phases 3, 5-6 and 8-11 are each driven with the kernel launch counts set
+Phases 3, 5-6 and 8-12 are each driven with the kernel launch counts set
 to 0 just before and read just after: K4-K6 must launch in phase 3, K1-K3
 in phases 5-6, K1/K3 in phase 8, K1-K3 in phase 9, K1, K3 and greedy_assign
-in phase 10, K1/K3 in phase 11.  Every check that fails raises, so the
+in phase 10, K1/K3 in phases 11 and 12.  Every check that fails raises, so the
 script exits non-zero and prints no result.  The last line is the JSON
 result object; the line before it is the card's name and power limit, and
 the one before that lists every kernel (K1 and K2 at the hop phase's
@@ -104,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import hashlib
 import importlib
 import json
@@ -610,30 +625,38 @@ def search_phase(torch, idx, eval_q, gt, metric, kernels, baseline, dev):
 
 
 def profile_call(torch, fn, wall_s: float) -> dict:
-    """``fn()`` under ``torch.profiler``: device kernel time (summed over
-    kernels; one stream, so they do not overlap) against ``wall_s``, the
-    unprofiled wall time of the same call, the kernels launched, and the
-    kernels that take the time.  Only device activity is recorded: the
-    host ops of a RAG request (tens of thousands) would take the profiler
-    longer to summarise than the request takes to run."""
+    """``fn()`` under ``torch.profiler``: device time (summed over the
+    kernels, copies and fills; one stream, so they do not overlap) against
+    ``wall_s``, the unprofiled wall time of the same call, the device
+    operations launched, and the kernels that take the time.  Only device
+    activity is recorded, and it is read from the raw trace events: the
+    profiler's own summary (``key_averages``) builds a Python object an
+    event, about 70 s for the ~400,000 kernels of one MoE RAG request."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_s = sum(e.self_device_time_total for e in kern) * 1e-6
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    ns, calls = Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ns[e.name()] += e.duration_ns()
+            calls[e.name()] += 1
+    busy_s = sum(ns.values()) * 1e-9
     return {
-        "device_busy_s": busy_s if kern else None,
+        "device_busy_s": busy_s if ns else None,
         "wall_s": wall_s,
-        "device_idle_share": (1.0 - busy_s / wall_s) if kern else None,
-        "kernel_launches": sum(e.count for e in kern),
-        "top_kernels": [{"name": e.key[:80], "calls": e.count,
-                         "device_ms": e.self_device_time_total * 1e-3}
-                        for e in top],
+        "device_idle_share": (1.0 - busy_s / wall_s) if ns else None,
+        "kernel_launches": sum(calls.values()),
+        # the profiled call and the reading of its trace together
+        "profiler_s": time.perf_counter() - t0,
+        "top_kernels": [{"name": name[:80], "calls": calls[name],
+                         "device_ms": t * 1e-6}
+                        for name, t in ns.most_common(8)],
     }
 
 
@@ -1559,19 +1582,21 @@ def attention_check(torch, np, model, params, tokens) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
 
 
-def chained_decode_rel(torch, engine, tokens) -> float:
+def chained_decode_rel(torch, model, params, tokens, patches=None) -> float:
     """Prefill of all S + 1 ``tokens`` against prefill of the first S then
-    one decode, on ``engine``'s model and weights: the largest difference
-    of the logits at position S over their largest value.  Raises if
-    either is not finite."""
-    model, params = engine.model, engine.compute_params
+    one decode, on ``model`` and its compute ``params``: the largest
+    difference of the last logits over their largest value.  With
+    ``patches`` (a VLM's) both prefills put them in front of the tokens.
+    Raises if either is not finite."""
+    extra = {} if patches is None else {"patches": patches}
+    P = 0 if patches is None else patches.shape[1]
     S = tokens.shape[1] - 1
-    t = torch.full((tokens.shape[0],), S, dtype=torch.int32,
+    t = torch.full((tokens.shape[0],), P + S, dtype=torch.int32,
                    device=tokens.device)
     with torch.no_grad():
-        full, _ = model.prefill(params, {"tokens": tokens})
-        _, cache = model.prefill(params, {"tokens": tokens[:, :S]},
-                                 capacity=S + 1)
+        full, _ = model.prefill(params, {"tokens": tokens, **extra})
+        _, cache = model.prefill(params, {"tokens": tokens[:, :S], **extra},
+                                 capacity=P + S + 1)
         step, _ = model.decode(params, tokens[:, S:], cache, t)
     require(bool(torch.isfinite(full).all() and torch.isfinite(step).all()),
             f"{model.cfg.name}: {model.cfg.compute_dtype} logits are not "
@@ -1595,8 +1620,8 @@ def layerwise_decode_check(torch, model, params, tokens) -> float:
         worst = 0.0
         for i in range(model.cfg.num_layers):
             p_l = model._layer(params, i)
-            y, _ = model._layer_full(p_l, x, pos)
-            _, (k, v) = model._layer_full(p_l, x[:, :S], pos[:, :S])
+            y, _, _ = model._layer_full(p_l, x, pos)
+            _, (k, v), _ = model._layer_full(p_l, x[:, :S], pos[:, :S])
             cache = model._cache_from_prefill(k[None], v[None], pos[:, :S], S,
                                               capacity=S1)
             y_dec, _, _, _ = model._layer_decode(
@@ -1607,6 +1632,60 @@ def layerwise_decode_check(torch, model, params, tokens) -> float:
                                      / want.abs().max().clamp_min(1e-30)))
             x = y
     return worst
+
+
+def router_tie_case(np, E: int, K: int, d: int, tokens: int, seed: int = 0):
+    """Router inputs whose logits tie exactly at the K-th / (K+1)-th place
+    for every token.  ``w``'s column j is a shared random column plus
+    ``c_j`` on input 0, and every token's input 0 is at least 4: experts
+    0 … K−2 get c = K … 2 (the top K−1, in that order), experts K−1 and
+    E−1 share c = 1 (identical columns, so their logits are equal in any
+    dtype), the rest −1.  Ties to the lowest id pick experts 0 … K−1 in
+    order; any other tie order picks E−1, another set.  Returns (x (1,
+    tokens, d), w (d, E), the ids wanted (K,)), float32 numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((1, tokens, d)).astype(np.float32)
+    x[..., 0] = np.abs(x[..., 0]) + 4.0
+    c = np.full(E, -1.0, np.float32)
+    c[:K - 1] = np.arange(K, 1, -1)
+    c[[K - 1, E - 1]] = 1.0
+    w = np.repeat(rng.standard_normal((d, 1)).astype(np.float32) * 0.05, E,
+                  axis=1)
+    w[0] += c
+    return x, w, np.arange(K)
+
+
+def rag_pipeline(np, idx, eval_q, engine, dev, n_req: int, batch: int,
+                 prompt_len: int, doc_len: int, new: int, out: dict):
+    """A ``RagPipeline`` (k = 4, ``fused``) over ``idx`` feeding
+    ``engine``, every row of the index given a ``doc_len``-token block
+    (``default_rng(0)``, which then draws the ``n_req`` prompts); the
+    first request's context generated twice: its logits must be finite and
+    the two greedy generations equal.  Returns (pipeline, query batches,
+    prompts, that context, the first generation); records the context
+    length and the block-drawing seconds in ``out``."""
+    from repro_torch.serve.retrieval import RagPipeline
+
+    cfg = engine.cfg
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    doc_tokens = rng.integers(2, cfg.vocab_size, (len(idx.db), doc_len),
+                              dtype=np.int32)
+    out["doc_tokens_s"] = time.perf_counter() - t0
+    pipe = RagPipeline(idx, engine, doc_tokens, k=4, kernel="fused", device=dev)
+    batches = _batches(np, eval_q, n_req, batch, 0)
+    prompts = [rng.integers(2, cfg.vocab_size, (batch, prompt_len),
+                            dtype=np.int32) for _ in range(n_req)]
+    ids0 = pipe(batches[0], prompts[0], max_new_tokens=1).retrieved_ids
+    ctx = pipe._splice(prompts[0], ids0)
+    out["context_len"] = int(ctx.shape[1])
+    g1 = engine.generate({"tokens": ctx}, new)
+    g2 = engine.generate({"tokens": ctx}, new)
+    require(bool(np.isfinite(g1.logits_last).all()),
+            f"{cfg.name}: logits are not finite")
+    require(np.array_equal(g1.tokens, g2.tokens),
+            f"{cfg.name}: two greedy generations of one batch differ")
+    return pipe, batches, prompts, ctx, g1
 
 
 def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
@@ -1631,10 +1710,7 @@ def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
     from repro_torch.configs import get_config
     from repro_torch.models.common import count_params
     from repro_torch.models.model import build_model
-    from repro_torch.obs import DEFAULT_LADDER, get_tracer
-    from repro_torch.serve.daemon import SearchRequest, ServeDaemon
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.retrieval import RagPipeline
 
     t_phase = time.perf_counter()
     cfg = get_config("gemma-2b") if cfg is None else cfg
@@ -1648,26 +1724,9 @@ def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
     out["resident_bytes"] = engine.resident_bytes()
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    doc_tokens = rng.integers(2, cfg.vocab_size, (len(idx.db), doc_len),
-                              dtype=np.int32)
-    out["doc_tokens_s"] = time.perf_counter() - t0
-    pipe = RagPipeline(idx, engine, doc_tokens, k=4, kernel="fused", device=dev)
-    batches = _batches(np, eval_q, n_req, batch, 0)
-    prompts = [rng.integers(2, cfg.vocab_size, (batch, prompt_len),
-                            dtype=np.int32) for _ in range(n_req)]
-
-    # model checks on the first request's context
-    ids0 = pipe(batches[0], prompts[0], max_new_tokens=1).retrieved_ids
-    ctx = pipe._splice(prompts[0], ids0)
-    out["context_len"] = int(ctx.shape[1])
-    g1 = engine.generate({"tokens": ctx}, new)
-    g2 = engine.generate({"tokens": ctx}, new)
-    require(bool(np.isfinite(g1.logits_last).all()),
-            f"{arch}: logits are not finite")
-    require(np.array_equal(g1.tokens, g2.tokens),
-            f"{arch}: two greedy generations of one batch differ")
+    pipe, batches, prompts, ctx, g1 = rag_pipeline(
+        np, idx, eval_q, engine, dev, n_req, batch, prompt_len, doc_len, new,
+        out)
     c2 = torch.as_tensor(ctx[:2], device=dev)
     # end to end in float32, the random-init model amplifies rounding (repro
     # does the same: tests/test_torch_lm_precision.py), so that difference
@@ -1675,7 +1734,7 @@ def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
     # each layer's decode against its prefill
     e32 = ServeEngine(cfg.with_(compute_dtype="float32"), engine.params,
                       device=dev)
-    rel = chained_decode_rel(torch, e32, c2)
+    rel = chained_decode_rel(torch, e32.model, e32.compute_params, c2)
     layer_rel = layerwise_decode_check(torch, e32.model, e32.compute_params, c2)
     require(layer_rel <= 1e-3,
             f"{arch}: a layer's decode differs from its prefill by "
@@ -1686,7 +1745,7 @@ def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
     del e32
     e64 = ServeEngine(cfg.with_(compute_dtype="float64"), engine.params,
                       device=dev)
-    rel64 = chained_decode_rel(torch, e64, c2)
+    rel64 = chained_decode_rel(torch, e64.model, e64.compute_params, c2)
     require(rel64 <= 1e-6,
             f"{arch}: float64 prefill(S+1) and prefill(S)+decode differ by "
             f"{rel64:.3g} relative > 1e-6")
@@ -1699,8 +1758,24 @@ def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
                      "attention_rel_err": att,
                      "tokens_first_row": g1.tokens[0, :8].tolist()}
     log(f"rag model checks ({arch}): " + json.dumps(out["checks"]))
+    out.update(rag_serve(torch, np, idx, pipe, batches, prompts, new, dev))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
-    # serving through the daemon
+
+def rag_serve(torch, np, idx, pipe, batches, prompts, new: int, dev,
+              tag: str = "rag") -> dict:
+    """``pipe`` behind a ``ServeDaemon`` on ``DEFAULT_LADDER`` serving one
+    request of each batch of queries and prompts in turn, traced; then one
+    more request of the first batch, timed, and again under the profiler.
+    Returns {"serve", "profile_request", "check"} (``check`` for
+    ``check_rag``)."""
+    from repro_torch.obs import DEFAULT_LADDER, get_tracer
+    from repro_torch.serve.daemon import SearchRequest, ServeDaemon
+
+    arch = pipe.engine.cfg.name
+    batch = len(batches[0])
+    out = {}
     daemon = ServeDaemon(idx, pipeline=pipe, ladder=DEFAULT_LADDER,
                          kernel="fused", batch_size=batch, device=dev)
     tracer = get_tracer()
@@ -1738,7 +1813,7 @@ def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
         "decode_tokens_per_s": tokens / sec["decode"] if sec["decode"] else None,
         "rungs": [[r.beam_width, r.max_hops] for r in rungs],
     }
-    log("rag serve: " + json.dumps(
+    log(f"{tag} serve: " + json.dumps(
         {k: v for k, v in out["serve"].items() if k != "latency_s"}))
 
     # one more request of the first batch, timed, then again under the
@@ -1751,9 +1826,8 @@ def rag_phase(torch, np, idx, eval_q, dev, n_req: int = 16, batch: int = 32,
     one()
     torch.cuda.synchronize()
     out["profile_request"] = profile_call(torch, one, time.perf_counter() - t0)
-    log("rag profile, one request: " + json.dumps(out["profile_request"]))
+    log(f"{tag} profile, one request: " + json.dumps(out["profile_request"]))
     out["check"] = (batches, rungs, res, pipe.base_params)
-    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1767,6 +1841,210 @@ def check_rag(torch, np, idx, check, dev) -> int:
         require(np.array_equal(r.retrieved_ids, want.ids.cpu().numpy()),
                 f"RAG request ids differ from search at rung {rung}")
     return len(res)
+
+def layer_cut(torch, model, params, n: int, dtype: str):
+    """The first ``n`` layers of ``model`` at full width, sliced from its
+    layer-stacked ``params`` and cast to ``dtype`` (norms as they are).
+    Returns (model, params)."""
+    from repro_torch.models.model import build_model
+
+    cut = build_model(model.cfg.with_(num_layers=n, compute_dtype=dtype))
+    layered = set(model._layer_names())
+    with torch.no_grad():
+        sliced = {k: (v[:n] if k in layered else v) for k, v in params.items()}
+        return cut, cut.compute_params(sliced)
+
+
+def last_logits(torch, model, params, tokens):
+    with torch.no_grad():
+        return model.prefill(params, {"tokens": tokens})[0]
+
+
+def moe_cut_checks(torch, np, model, params, tokens) -> dict:
+    """Checks (c) and (d) of phase 12 on the first two layers of ``model``
+    at full width: in float64, prefill(S+1) against prefill(S) + decode
+    (1e-6 relative) and the dropping dispatch at capacity factor E/K,
+    where nothing is dropped, against the dense one (1e-9 on the last
+    logits); in float32 each layer's decode against its prefill (1e-3),
+    the end-to-end difference reported; at the config's capacity factor
+    the share of token slots the dropping dispatch drops."""
+    from dataclasses import replace
+
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import build_model
+
+    arch, moe = model.cfg.name, model.cfg.moe
+    out = {}
+    m32, p32 = layer_cut(torch, model, params, 2, "float32")
+    out["layer_decode_rel_err_f32"] = layerwise_decode_check(torch, m32, p32,
+                                                             tokens)
+    out["prefill_decode_rel_err_f32"] = chained_decode_rel(torch, m32, p32,
+                                                           tokens)
+    require(out["layer_decode_rel_err_f32"] <= 1e-3,
+            f"{arch}: a layer's float32 decode differs from its prefill by "
+            f"{out['layer_decode_rel_err_f32']:.3g} relative > 1e-3")
+    del m32, p32
+    m64, p64 = layer_cut(torch, model, params, 2, "float64")
+    out["prefill_decode_rel_err_f64"] = chained_decode_rel(torch, m64, p64,
+                                                           tokens)
+    require(out["prefill_decode_rel_err_f64"] <= 1e-6,
+            f"{arch}: float64 prefill(S+1) and prefill(S)+decode differ by "
+            f"{out['prefill_decode_rel_err_f64']:.3g} relative > 1e-6")
+    dense = last_logits(torch, m64, p64, tokens)
+    full_cf = moe.num_experts / moe.experts_per_token
+    orig = moe_lib._scatter_group
+    for cf in (full_cf, moe.capacity_factor):
+        dropping = build_model(m64.cfg.with_(moe=replace(
+            moe, impl="dropping", capacity_factor=cf)))
+        keeps = []
+
+        def recording(*a, **kw):
+            res = orig(*a, **kw)
+            keeps.append(res[1])
+            return res
+
+        moe_lib._scatter_group = recording
+        try:
+            logits = last_logits(torch, dropping, p64, tokens)
+        finally:
+            moe_lib._scatter_group = orig
+        kept = sum(int(k.sum()) for k in keeps)
+        slots = sum(k.numel() for k in keeps)
+        out[f"dropped_share_cf_{cf:g}"] = 1.0 - kept / slots
+        if cf == full_cf:
+            out["dropping_vs_dense_rel_err_f64"] = float(
+                (logits - dense).abs().max() / dense.abs().max())
+            require(kept == slots, f"{arch}: capacity E/K dropped a slot")
+            require(out["dropping_vs_dense_rel_err_f64"] <= 1e-9,
+                    f"{arch}: dropping at capacity E/K differs from dense by "
+                    f"{out['dropping_vs_dense_rel_err_f64']:.3g} > 1e-9")
+    del m64, p64, dense, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_prefix_check(torch, np, cfg, dev, S: int = 64, B: int = 2) -> dict:
+    """Check (e) of phase 12: ``cfg`` (a VLM) at its published width, cut
+    to 2 layers and drawn on the card in float64 (seed 0): prefill of the
+    patches plus S + 1 tokens against prefill of the patches plus S tokens
+    then one decode, within 1e-6 relative; the logits finite."""
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    cut = cfg.with_(num_layers=2, compute_dtype="float64")
+    model = build_model(cut)
+    params = model.init_compute(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, (B, S + 1),
+                                          dtype=np.int32), device=dev)
+    patches = torch.as_tensor(rng.standard_normal(
+        (B, cfg.num_patches, cfg.patch_dim)).astype(np.float32), device=dev)
+    rel = chained_decode_rel(torch, model, params, tokens, patches)
+    require(rel <= 1e-6, f"{cfg.name}: float64 prefill of the patches + S+1 "
+                         f"tokens and prefill(S)+decode differ by {rel:.3g} "
+                         "> 1e-6")
+    out = {"arch": cfg.name, "layers": 2, "d_model": cfg.d_model,
+           "patches": [cfg.num_patches, cfg.patch_dim], "tokens": S + 1,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.values()),
+           "prefill_decode_rel_err_f64": rel,
+           "seconds": time.perf_counter() - t0}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_rag_phase(torch, np, idx, eval_q, dev, n_req: int = 8,
+                  batch: int = 32, prompt_len: int = 64, doc_len: int = 128,
+                  new: int = 32, cfg=None, vlm_cfg=None,
+                  max_weight_bytes: float = 34e9) -> dict:
+    """RAG serving with the MoE decoder at full width and depth (phase 12).
+
+    (f) the router tie case (``router_tie_case``) at the model's expert
+    count and width, in bf16 on the card: ids lowest first; (e) the VLM
+    prefix (``vlm_prefix_check``, ``vlm_cfg`` default internvl2-26b).
+    Then the model, drawn on the card straight into its compute dtype
+    (``init_compute``, seed 0; at most ``max_weight_bytes`` resident)
+    behind a ``RagPipeline`` (``rag_pipeline``: (a) finite logits, (b) two
+    greedy generations equal); (c) and (d) on a 2-layer cut
+    (``moe_cut_checks``); then ``rag_serve``.  The decode step is set
+    beside two bounds: every weight byte read once (the dense dispatch
+    reads every expert) and only the active ones (top-k of the experts,
+    what a dropping dispatch could read).  ``cfg`` defaults to
+    qwen2-moe-a2.7b's published config."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.common import count_params
+    from repro_torch.models.model import active_param_count, build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-moe-a2.7b") if cfg is None else cfg
+    vlm_cfg = get_config("internvl2-26b") if vlm_cfg is None else vlm_cfg
+    arch, moe = cfg.name, cfg.moe
+    model = build_model(cfg)
+    out = {"arch": arch, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "experts": [moe.num_experts, moe.experts_per_token,
+                       moe.shared_experts], "impl": moe.impl,
+           "params": count_params(model.param_table()),
+           "active_params": active_param_count(cfg)}
+
+    # (f) ties to the lowest expert id, in bf16 on the card
+    x, w, want = router_tie_case(np, moe.num_experts, moe.experts_per_token,
+                                 cfg.d_model, batch)
+    with torch.no_grad():
+        _, ids, _ = moe_lib._router(
+            torch.as_tensor(x, device=dev).to(torch.bfloat16),
+            torch.as_tensor(w, device=dev).to(torch.bfloat16), moe)
+    require(bool((ids.cpu() == torch.as_tensor(want)).all()),
+            f"{arch}: router ties do not go to the lowest expert id")
+    out["router_ties_lowest_first"] = True
+    # (e) the VLM patch prefix at its published width
+    out["vlm"] = vlm_prefix_check(torch, np, vlm_cfg, dev)
+    log("vlm prefix check: " + json.dumps(out["vlm"]))
+
+    t0 = time.perf_counter()
+    params = model.init_compute(torch.Generator(device=dev).manual_seed(0))
+    engine = ServeEngine(cfg, params, device=dev)
+    del params
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["resident_bytes"] = engine.resident_bytes()
+    out["max_memory_allocated_after_init"] = torch.cuda.max_memory_allocated()
+    require(out["resident_bytes"]["total"] <= max_weight_bytes,
+            f"{arch}: {out['resident_bytes']['total']} weight bytes resident "
+            f"> {max_weight_bytes:.3g}")
+    pipe, batches, prompts, ctx, g1 = rag_pipeline(
+        np, idx, eval_q, engine, dev, n_req, batch, prompt_len, doc_len, new,
+        out)
+    out["checks"] = {"finite": True, "greedy_repeatable": True,
+                     "router_ties_lowest_first": True,
+                     "tokens_first_row": g1.tokens[0, :8].tolist(),
+                     **moe_cut_checks(torch, np, model, engine.params,
+                                      torch.as_tensor(ctx[:2], device=dev))}
+    log(f"moe model checks ({arch}): " + json.dumps(out["checks"]))
+    out.update(rag_serve(torch, np, idx, pipe, batches, prompts, new, dev,
+                         tag="moe rag"))
+    # the decode step against its bounds
+    steps = n_req * new
+    dec_s = out["serve"]["span_seconds"]["decode"]
+    all_bytes = out["resident_bytes"]["total"]
+    active = sum(p.numel() * p.element_size() * (
+        moe.experts_per_token / moe.num_experts
+        if n in ("we_gate", "we_up", "we_down") else 1)
+        for n, p in engine.params.items())
+    out["decode_step"] = {
+        "ms": dec_s / steps * 1e3 if steps else None,
+        "prefill_s_per_request": out["serve"]["span_seconds"]["prefill"] / n_req,
+        "bound_ms_dense_all_bytes": all_bytes / PEAK_BYTES_PER_S * 1e3,
+        "bound_ms_active_bytes": active / PEAK_BYTES_PER_S * 1e3,
+        "all_bytes": all_bytes, "active_bytes": active}
+    log("moe decode step against its bounds: " + json.dumps(out["decode_step"]))
+    del pipe, engine
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
 
 CSRC = "src/repro_torch/csrc/"
 SOURCES = {"gather_rows_dist": CSRC + "gather_dist.cu",
@@ -1795,7 +2073,7 @@ def _at_shape(rec: dict) -> dict:
 
 def kernels_line(kres, api, hop, launches, serve_launches,
                  feedback_launches, single, greedy, ablation_launches=None,
-                 rag_launches=None) -> list:
+                 rag_launches=None, moe_rag_launches=None) -> list:
     """One entry per kernel for the line before the last: K1 and K2 at the
     10,000-query search's own calls (hop phase) with their fixed (1024, 32)
     rows beside them, and K1 at the single-query search's (1, R) calls
@@ -1804,8 +2082,9 @@ def kernels_line(kres, api, hop, launches, serve_launches,
     beside them; K6 at bench_kernels.py's; ``greedy_assign`` (port-only)
     at its 20,000-row slice with the 1M root split beside it (``greedy``).
     K1-K3 count their launches on the search, serve, feedback, ablation
-    and RAG paths, ``greedy_assign`` on the ablation path."""
-    extra = {"ablations": ablation_launches or {}, "rag": rag_launches or {}}
+    and both RAG paths, ``greedy_assign`` on the ablation path."""
+    extra = {"ablations": ablation_launches or {}, "rag": rag_launches or {},
+             "rag_moe": moe_rag_launches or {}}
     hop_of = {"gather_rows_dist": "fused_l2", "gather_rows_dist_q8": "fused_q8_l2"}
     comp = api["composed_top10"]
     line = []
@@ -2105,6 +2384,26 @@ def main(argv=None) -> int:
                                             dev)
         log(f"phase 11: {rag['seconds']:.1f} s, {rag['requests_checked']} "
             "requests' ids equal a plain search at their rung")
+
+        # 12. retrieval-augmented serving with the MoE decoder at full
+        # width and depth, after phase 11's model is freed; its own counts
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"memory before phase 12: {torch.cuda.memory_allocated()} bytes")
+        K.reset_launch_counts()
+        moe_rag = moe_rag_phase(torch, np, idx, eval_q, dev)
+        moe_rag_launches = K.launch_counts()
+        log("launches on the MoE RAG path: " + json.dumps(moe_rag_launches))
+        for name in ("gather_rows_dist", "twotower_score"):
+            require(moe_rag_launches[name] > 0,
+                    f"kernel {name} was not launched on the MoE RAG path")
+        moe_rag["requests_checked"] = check_rag(torch, np, idx,
+                                                moe_rag.pop("check"), dev)
+        moe_rag["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"phase 12: {moe_rag['seconds']:.1f} s, "
+            f"{moe_rag['requests_checked']} requests' ids equal a plain "
+            "search at their rung")
         t0 = time.perf_counter()
         abl["bfs"]["projection_full_size"] = bfs_projection(
             bfs_job.get(timeout=600), bfs_targets)
@@ -2114,7 +2413,7 @@ def main(argv=None) -> int:
 
     line = kernels_line(kres, api, hop, launches, serve_launches,
                         fb_launches, single, greedy, abl_launches,
-                        rag_launches)
+                        rag_launches, moe_rag_launches)
     record = {
         "card": smi, "n": args.n, "queries": args.queries,
         "timing_floor_ms": floor_ms,
@@ -2132,6 +2431,7 @@ def main(argv=None) -> int:
         "k1_single_query": single,
         "ablations": abl, "ablation_launches": abl_launches,
         "greedy_assign": greedy, "rag": rag, "rag_launches": rag_launches,
+        "moe_rag": moe_rag, "moe_rag_launches": moe_rag_launches,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

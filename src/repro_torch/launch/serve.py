@@ -3,12 +3,18 @@
     python -m repro_torch.launch.serve --arch gemma-2b --reduced --batch 4 --new 16
     python -m repro_torch.launch.serve --arch gemma-2b --reduced --rag \\
         --db-size 4000 --k 4 --kernel fused --metrics-port 9100
+    python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --rag \\
+        --kernel fused
 
 Everything runs on ``--device`` (default ``cuda``; ``--device cpu`` runs
 the kernels' plain versions).  The weights are random, drawn from
-``--seed``.  ``--metrics-port`` exposes the live metrics registry over HTTP
-for the run (Prometheus text at /metrics).  For a long-running
-queue-driven server use ``python -m repro_torch.serve.daemon`` instead.
+``--seed``; where the compute dtype is not the parameter dtype they are
+drawn straight into it (``DecoderLM.init_compute``), so a model whose
+float32 parameters would not fit beside their bf16 copy (qwen2-moe-a2.7b:
+67.2 GB and 33.6 GB) holds only the latter.  ``--metrics-port`` exposes
+the live metrics registry over HTTP for the run (Prometheus text at
+/metrics).  For a long-running queue-driven server use
+``python -m repro_torch.serve.daemon`` instead.
 """
 from __future__ import annotations
 
@@ -78,7 +84,9 @@ def _run(args):
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     device = torch.device(args.device)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = (model.init(gen) if cfg.compute_dtype == cfg.param_dtype
+              else model.init_compute(gen))
     engine = ServeEngine(cfg, params, device=device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(

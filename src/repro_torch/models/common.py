@@ -63,8 +63,9 @@ def init_param(generator: torch.Generator, spec: ParamSpec, dtype: str,
         return torch.ones(spec.shape, dtype=dt, device=device)
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     std = spec.scale if spec.scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
-    return (torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                        device=device) * float(std)).to(dt)
+    # scaled in place: one float32 tensor of the shape at a time
+    return torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device).mul_(float(std)).to(dt)
 
 
 def init_params(table: Dict[str, ParamSpec], generator: torch.Generator,

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family (counterpart of
-``repro.models.transformer``).
+"""Decoder-only transformer LM: the dense, MoE and VLM-prefix families
+(counterpart of ``repro.models.transformer``).
 
 Parameters are ``repro``'s: the same flat names and layer-stacked
 ``(L, …)`` layouts (``param_table``), so a ``repro`` parameter dict carries
@@ -12,7 +12,14 @@ and SWA rolling buffers (cache_len == window) with the same code.
 
 Each weight is used in the compute dtype (``repro`` casts it at every use);
 ``compute_params`` makes that cast once, and the norm weights stay float32,
-which is the dtype ``rms_norm`` reads them in.
+which is the dtype ``rms_norm`` reads them in.  ``init_compute`` draws the
+weights straight into that form, one tensor at a time, for a model whose
+float32 parameters do not fit beside their copy.
+
+The MoE family's MLP is ``repro_torch.models.moe.moe_ffn``, whose router
+aux term ``loss`` adds in; the VLM family takes precomputed patch
+embeddings (``batch["patches"]``), normed and projected in front of the
+tokens.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     ParamSpec,
     Params,
@@ -32,13 +40,15 @@ from repro_torch.models.common import (
     cross_entropy,
     decode_attention,
     glu_mlp,
+    init_param,
     init_params,
     rms_norm,
     scalar_in,
     torch_dtype,
 )
 
-NORMS = ("final_norm", "attn_norm", "mlp_norm")
+NORMS = ("final_norm", "attn_norm", "mlp_norm", "patch_norm")
+FAMILIES = ("dense", "moe", "vlm")
 
 
 class TensorSpec(NamedTuple):
@@ -47,16 +57,16 @@ class TensorSpec(NamedTuple):
 
 
 class DecoderLM(nn.Module):
-    """The dense decoder.  Holds no tensors: ``init`` returns a parameter
-    dict, and ``forward`` (``loss``), ``prefill`` and ``decode`` take one."""
+    """The decoder of the dense, MoE and VLM families.  Holds no tensors:
+    ``init`` returns a parameter dict, and ``forward`` (``loss``),
+    ``prefill`` and ``decode`` take one."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe is not None:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"DecoderLM: {cfg.name} is family {cfg.family!r}; the port "
-                "runs the dense family only (ROADMAP A6 ports MoE, then the "
-                "VLM patch prefix)")
+                f"DecoderLM: {cfg.name} is family {cfg.family!r}, not one of "
+                f"{FAMILIES} (ROADMAP A6 ports the other families)")
         self.cfg = cfg
 
     # ------------------------------------------------------------------ params
@@ -92,9 +102,16 @@ class DecoderLM(nn.Module):
                                 lax_ + ("kv_heads", "head_dim"), init="zeros")
             t["bv"] = ParamSpec(lead + (Hkv, hd),
                                 lax_ + ("kv_heads", "head_dim"), init="zeros")
-        t["w_gate"] = ParamSpec(lead + (d, ff), lax_ + ("embed", "ff"))
-        t["w_up"] = ParamSpec(lead + (d, ff), lax_ + ("embed", "ff"))
-        t["w_down"] = ParamSpec(lead + (ff, d), lax_ + ("ff", "embed"))
+        if cfg.moe is not None:
+            t.update(moe_lib.moe_param_table(cfg, "", L))
+        else:
+            t["w_gate"] = ParamSpec(lead + (d, ff), lax_ + ("embed", "ff"))
+            t["w_up"] = ParamSpec(lead + (d, ff), lax_ + ("embed", "ff"))
+            t["w_down"] = ParamSpec(lead + (ff, d), lax_ + ("ff", "embed"))
+        if cfg.family == "vlm":
+            t["patch_proj"] = ParamSpec((cfg.patch_dim, d), ("patch", "embed"))
+            t["patch_norm"] = ParamSpec((cfg.patch_dim,), ("norm",),
+                                        init="zeros")
         return t
 
     def init(self, generator: torch.Generator, device=None) -> Params:
@@ -110,12 +127,34 @@ class DecoderLM(nn.Module):
         dt = torch_dtype(self.cfg.compute_dtype)
         return {n: p if n in NORMS else p.to(dt) for n, p in params.items()}
 
+    def init_compute(self, generator: torch.Generator, device=None) -> Params:
+        """``compute_params(init(generator))``, bit for bit, without the
+        parameters: each tensor is drawn as ``init`` draws it (same
+        generator, sorted name order) and cast at once, so at most one
+        float32 tensor is alive at a time."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.compute_dtype)
+        table = self.param_table()
+        out = {}
+        for n in sorted(table):
+            p = init_param(generator, table[n], cfg.param_dtype, device)
+            out[n] = p if n in NORMS else p.to(dt)
+            del p  # before the next draw, not after it
+        return out
+
     # ----------------------------------------------------------------- pieces
     def _layer_names(self):
+        cfg = self.cfg
         names = ["attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"]
-        if self.cfg.qkv_bias:
+        if cfg.qkv_bias:
             names += ["bq", "bk", "bv"]
-        return names + ["w_gate", "w_up", "w_down"]
+        if cfg.moe is not None:
+            names += ["router", "we_gate", "we_up", "we_down"]
+            if cfg.moe.shared_experts:
+                names += ["ws_gate", "ws_up", "ws_down", "shared_gate"]
+        else:
+            names += ["w_gate", "w_up", "w_down"]
+        return names
 
     def _layer(self, params: Params, i: int) -> Params:
         return {n: params[n][i] for n in self._layer_names()}
@@ -143,10 +182,14 @@ class DecoderLM(nn.Module):
         return attn.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
     def _mlp(self, p, h):
-        return glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"], self.cfg.mlp_act)
+        """Returns (output, router aux term or None for a dense MLP)."""
+        cfg = self.cfg
+        if cfg.moe is not None:
+            return moe_lib.moe_ffn(h, p, "", cfg)
+        return glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"], cfg.mlp_act), None
 
     def _layer_full(self, p, x, pos):
-        """Full-sequence layer (train / prefill). Returns (x, (k, v))."""
+        """Full-sequence layer (train / prefill). Returns (x, (k, v), aux)."""
         cfg = self.cfg
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         q, k, v = self._attn_proj_qkv(p, h, pos)
@@ -156,7 +199,8 @@ class DecoderLM(nn.Module):
         )
         x = x + self._attn_out(p, attn, x.dtype)
         h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-        return x + self._mlp(p, h2), (k, v)
+        mlp_out, aux = self._mlp(p, h2)
+        return x + mlp_out, (k, v), aux
 
     def _layer_decode(self, p, x, cache_k, cache_v, cache_pos, t):
         """Single-token layer. x: (B,1,D). Returns (x, new_k, new_v, pos)."""
@@ -168,7 +212,7 @@ class DecoderLM(nn.Module):
         attn = decode_attention(q, ck, cv, pos_q, cp, window=cfg.window)
         x = x + self._attn_out(p, attn, x.dtype)
         h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-        return x + self._mlp(p, h2), ck, cv, cp
+        return x + self._mlp(p, h2)[0], ck, cv, cp
 
     # ------------------------------------------------------------- embeddings
     def _embed_tokens(self, params, tokens):
@@ -179,6 +223,27 @@ class DecoderLM(nn.Module):
         if cfg.tie_embeddings:  # gemma-style embed scaling
             x = x * scalar_in(np.sqrt(cfg.d_model), dt)
         return x
+
+    def _assemble_input(self, params, batch):
+        """Token embeds, with the VLM patch prefix when the batch has
+        ``patches``.  Returns (x, labels), the labels (if any) padded with
+        -1 on the patch positions."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, batch["tokens"])
+        labels = batch.get("labels")
+        if labels is not None:
+            labels = torch.as_tensor(labels, device=x.device)
+        if cfg.family == "vlm" and "patches" in batch:
+            dt = x.dtype
+            patches = torch.as_tensor(batch["patches"], device=x.device)
+            pe = rms_norm(patches.to(dt), params["patch_norm"], cfg.norm_eps)
+            pe = pe @ params["patch_proj"].to(dt)
+            x = torch.cat([pe, x], dim=1)
+            if labels is not None:
+                pad = torch.full(pe.shape[:2], -1, dtype=labels.dtype,
+                                 device=x.device)
+                labels = torch.cat([pad, labels], dim=1)
+        return x, labels
 
     def _logits(self, params, x):
         dt = x.dtype
@@ -191,16 +256,21 @@ class DecoderLM(nn.Module):
 
     # ------------------------------------------------------------------ modes
     def _stack_full(self, params, x, pos, collect_kv: bool):
+        """Returns (x, (ks, vs) or None, the layers' summed router aux
+        term, or None for the dense family)."""
         S = x.shape[1]
         C = self.cache_len(S)  # SWA: keep only the trailing window
         ks, vs = [], []
+        aux = None
         for i in range(self.cfg.num_layers):
-            x, (k, v) = self._layer_full(self._layer(params, i), x, pos)
+            x, (k, v), aux_l = self._layer_full(self._layer(params, i), x, pos)
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
             if collect_kv:
                 ks.append(k[:, S - C:] if C < S else k)
                 vs.append(v[:, S - C:] if C < S else v)
         kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-        return x, kvs
+        return x, kvs, aux
 
     @staticmethod
     def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -208,19 +278,23 @@ class DecoderLM(nn.Module):
 
     def loss(self, params, batch):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
-        ``batch["labels"]`` (label -1 is ignored); returns (loss, metrics)."""
+        ``batch["labels"]`` (label -1 is ignored), plus the MoE family's
+        ``router_aux_coef`` times the layers' summed router aux term;
+        returns (loss, {"ce", "aux"})."""
         cfg = self.cfg
-        x = self._embed_tokens(params, batch["tokens"])
-        labels = torch.as_tensor(batch["labels"], device=x.device)
+        x, labels = self._assemble_input(params, batch)
         B, S, _ = x.shape
-        x, _ = self._stack_full(params, x, self._positions(B, S, x.device),
-                                collect_kv=False)
+        x, _, aux = self._stack_full(params, x,
+                                     self._positions(B, S, x.device),
+                                     collect_kv=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x)
         mask = (labels[:, 1:] >= 0).to(torch.float32)
         ce = cross_entropy(logits[:, :-1], torch.clamp_min(labels[:, 1:], 0),
                            mask)
-        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        if aux is None:
+            return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        return ce + cfg.moe.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     forward = loss
 
@@ -229,10 +303,10 @@ class DecoderLM(nn.Module):
         new tokens); defaults to the prompt length.  Returns (last-position
         logits (B, V), cache)."""
         cfg = self.cfg
-        x = self._embed_tokens(params, batch["tokens"])
+        x, _ = self._assemble_input(params, batch)
         B, S, _ = x.shape
         pos = self._positions(B, S, x.device)
-        x, (ks, vs) = self._stack_full(params, x, pos, collect_kv=True)
+        x, (ks, vs), _ = self._stack_full(params, x, pos, collect_kv=True)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x)[:, 0]
         return logits, self._cache_from_prefill(ks, vs, pos, S, capacity)

@@ -7,7 +7,9 @@ done mask.
 
 The weights are cast to the compute dtype once, here (``repro`` casts them
 at every use, which gives the same bits), so a bfloat16 model keeps both
-its float32 parameters and that bfloat16 copy resident.
+its float32 parameters and that bfloat16 copy resident, unless it is
+handed weights already in that form (``DecoderLM.init_compute``), which
+it keeps as they are.
 
 Observability: ``generate`` wraps the prefill and the decode loop in
 ``span``s (a traced prefill waits for the card before its span closes) and

@@ -110,13 +110,16 @@ def test_public_surface_resolves_without_jax():
     """Every name of ``repro_torch.__all__`` (``repro``'s export table, plus
     ``exact_knn`` and ``recall_at_k``) and of ``repro_torch.core`` /
     ``repro_torch.graphs`` / ``repro_torch.models`` / ``repro_torch.serve``
-    resolves, and the LM configs, models and launcher import, in a fresh
-    interpreter that has loaded neither ``jax`` nor ``repro`` afterwards."""
+    resolves, and the LM configs, models (the MoE module among them) and
+    launcher import, in a fresh interpreter that has loaded neither
+    ``jax`` nor ``repro`` afterwards."""
     code = (
         "import sys, repro_torch, repro_torch.core as c, repro_torch.graphs as g\n"
         "import repro_torch.models as mo, repro_torch.serve as sv\n"
         "import repro_torch.configs as cf, repro_torch.launch.serve\n"
         "import repro_torch.core.baselines, repro_torch.train.optim\n"
+        "import repro_torch.models.moe as moe, repro_torch.models.tables\n"
+        "assert callable(moe.moe_ffn) and callable(moe.moe_param_table)\n"
         "for m in (repro_torch, c, g, mo, sv, cf):\n"
         "    for n in m.__all__:\n"
         "        assert getattr(m, n) is not None, n\n"

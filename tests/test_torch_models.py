@@ -5,10 +5,17 @@ same weights and tokens, on the CPU.
 reproduce); ``repro_torch.convert.lm_params_from_numpy`` carries them
 across.  Reduced configs compute in float32.
 
+The cases cover the dense family (gemma-2b, llama3-8b, and llama3-8b
+with a 16-position window), the MoE family (qwen2-moe-a2.7b with shared
+experts; mixtral-8x22b, also with a 16-position window) and the VLM
+(internvl2-26b, whose prefill and loss take patch embeddings).
+
 Tolerances: parameter names and shapes equal; prefill logits and caches,
 then 4 decode steps, within 1e-4 (fp32 products and sums in another
-order through 2 layers); ``blockwise_attention`` within 1e-5; ``rms_norm``
-and ``apply_rope`` within 1e-6; cache positions equal.
+order through 2 layers); the loss and the MoE aux within 1e-5;
+``blockwise_attention`` within 1e-5; ``rms_norm`` and ``apply_rope``
+within 1e-6; cache positions, input batches, specs and the analytic
+counts equal; ``init_compute`` bit-equal to ``compute_params(init(g))``.
 """
 import jax
 import jax.numpy as jnp
@@ -19,14 +26,16 @@ import torch
 from repro.configs import get_reduced as j_get_reduced
 from repro.configs.base import ShapeSpec as JShapeSpec
 from repro.models import common as jc
+from repro.models import model as jmodel
 from repro.models.model import build_model as j_build_model
 from repro.models.model import make_cache as j_make_cache
 from repro.models.model import make_inputs as j_make_inputs
 
-from repro_torch.configs import ARCH_NAMES, get_config, get_reduced
+from repro_torch.configs import ARCH_NAMES, LM_SHAPES, get_config, get_reduced
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.models import common as tc
+from repro_torch.models import model as tmodel
 from repro_torch.models.model import build_model, make_cache, make_inputs
 
 from test_torch_search import one_torch_thread  # noqa: F401  (autouse)
@@ -35,6 +44,10 @@ CASES = {
     "gemma-2b": lambda c: c,
     "llama3-8b": lambda c: c,
     "llama3-8b-swa16": lambda c: c.with_(window=16),
+    "qwen2-moe-a2.7b": lambda c: c,
+    "mixtral-8x22b": lambda c: c,
+    "mixtral-8x22b-swa16": lambda c: c.with_(window=16),
+    "internvl2-26b": lambda c: c,
 }
 
 
@@ -51,6 +64,15 @@ def _t(a):
 def _close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), rtol=tol, atol=tol)
+
+
+def _patches(cfg, B, seed):
+    """The VLM's patch embeddings for a batch of B (none for the others)."""
+    if cfg.family != "vlm":
+        return {}
+    rng = np.random.default_rng(seed)
+    return {"patches": rng.standard_normal(
+        (B, cfg.num_patches, cfg.patch_dim)).astype(np.float32)}
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -78,8 +100,7 @@ def test_configs_are_the_references():
 
 
 def test_other_families_raise_naming_the_roadmap():
-    for arch in ("mixtral-8x22b", "zamba2-1.2b", "rwkv6-1.6b",
-                 "seamless-m4t-medium", "internvl2-26b"):
+    for arch in ("zamba2-1.2b", "rwkv6-1.6b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             build_model(get_reduced(arch))
 
@@ -125,11 +146,16 @@ def test_prefill_then_decode_match(pair):
     B, S, steps = 2, 40, 4
     rng = np.random.default_rng(3)
     toks = rng.integers(2, tcfg.vocab_size, (B, S + steps)).astype(np.int32)
-    cap = S + steps
-    jl, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :S])},
-                            capacity=cap)
+    extra = _patches(tcfg, B, 9)
+    P = tcfg.num_patches if extra else 0
+    cap = P + S + steps
+    jl, jcache = jm.prefill(
+        jp, {"tokens": jnp.asarray(toks[:, :S]),
+             **{k: jnp.asarray(v) for k, v in extra.items()}}, capacity=cap)
     with torch.no_grad():
-        tl, tcache = tm.prefill(tp, {"tokens": _t(toks[:, :S])}, capacity=cap)
+        tl, tcache = tm.prefill(
+            tp, {"tokens": _t(toks[:, :S]),
+                 **{k: _t(v) for k, v in extra.items()}}, capacity=cap)
     _close(tl, jl, 1e-4)
     assert tcache["k"].shape == jcache["k"].shape
     for f in ("k", "v"):
@@ -138,7 +164,7 @@ def test_prefill_then_decode_match(pair):
     if "swa" in name:
         assert tcache["k"].shape[2] == 16  # the rolling buffer
     for i in range(steps):
-        t = np.full((B,), S + i, np.int32)
+        t = np.full((B,), P + S + i, np.int32)
         tok = toks[:, S + i:S + i + 1]
         jl, jcache = jm.decode(jp, jnp.asarray(tok), jcache, jnp.asarray(t))
         with torch.no_grad():
@@ -156,11 +182,82 @@ def test_loss_matches(pair):
     toks = rng.integers(0, tcfg.vocab_size, (2, 24)).astype(np.int32)
     labels = toks.copy()
     labels[:, :3] = -1
-    jl, _ = jm.loss(jp, {"tokens": jnp.asarray(toks),
-                         "labels": jnp.asarray(labels)})
+    batch = {"tokens": toks, "labels": labels, **_patches(tcfg, 2, 10)}
+    jl, jmet = jm.loss(jp, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.no_grad():
-        tl, _ = tm.loss(tp, {"tokens": _t(toks), "labels": _t(labels)})
+        tl, tmet = tm.loss(tp, {k: _t(v) for k, v in batch.items()})
     _close(tl, jl, 1e-5)
+    _close(tmet["ce"], jmet["ce"], 1e-5)
+    _close(tmet["aux"], jmet["aux"], 1e-5)
+    if tcfg.moe is not None:  # the aux term is real and in the total
+        assert float(tmet["aux"]) > 0
+        _close(tl, tmet["ce"] + tcfg.moe.router_aux_coef * tmet["aux"], 1e-6)
+    else:
+        assert float(tmet["aux"]) == 0.0 and float(tl) == float(tmet["ce"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "internvl2-26b"])
+def test_init_compute_is_compute_params_of_init(arch):
+    """Drawn straight into the compute dtype, the weights are the bits
+    that ``init`` then ``compute_params`` give, norms left in float32."""
+    cfg = get_reduced(arch).with_(compute_dtype="bfloat16")
+    model = build_model(cfg)
+    want = model.compute_params(model.init(torch.Generator().manual_seed(3)))
+    got = model.init_compute(torch.Generator().manual_seed(3))
+    assert list(got) == list(want)
+    for n in want:
+        assert got[n].dtype == want[n].dtype and torch.equal(got[n], want[n]), n
+    assert got["patch_norm" if cfg.family == "vlm" else "mlp_norm"].dtype == \
+        torch.float32
+    assert got["wq"].dtype == torch.bfloat16
+
+
+def test_vlm_batch_specs_and_inputs_are_the_references():
+    for arch in ("internvl2-26b", "qwen2-moe-a2.7b"):
+        cfg, jcfg = get_reduced(arch), j_get_reduced(arch)
+        for kind in ("train", "prefill", "decode"):
+            shape = ShapeSpec("t", kind, 24, 3)
+            jshape = JShapeSpec("t", kind, 24, 3)
+            specs = tmodel.batch_specs(cfg, shape)
+            jspecs = jmodel.batch_specs(jcfg, jshape)
+            assert list(specs) == list(jspecs)
+            for k in specs:
+                assert specs[k].shape == jspecs[k].shape, (arch, kind, k)
+                assert str(specs[k].dtype).split(".")[-1] == \
+                    str(jspecs[k].dtype), (arch, kind, k)
+            got = make_inputs(cfg, shape, seed=6, device="cpu")
+            want = j_make_inputs(jcfg, jshape, seed=6)
+            assert list(got) == list(want)
+            for k in got:
+                np.testing.assert_array_equal(got[k].numpy(),
+                                              np.asarray(want[k]))
+    specs = tmodel.batch_specs(get_reduced("internvl2-26b"),
+                               ShapeSpec("t", "train", 24, 3))
+    assert specs["patches"].shape == (3, 8, 64) and specs["tokens"].shape == (3, 16)
+
+
+def test_active_params_flops_and_serve_state_are_the_references():
+    """``repro``'s formulas over all ten configurations and every shape;
+    the serve state of the families the port runs."""
+    from repro.configs import get_config as j_get_config
+    from repro.configs.base import LM_SHAPES as J_SHAPES
+
+    for arch in ARCH_NAMES:
+        cfg, jcfg = get_config(arch), j_get_config(arch)
+        assert tmodel.active_param_count(cfg) == \
+            jmodel.active_param_count(jcfg), arch
+        for shape, jshape in zip(LM_SHAPES, J_SHAPES):
+            assert tmodel.model_flops_per_step(cfg, shape) == \
+                jmodel.model_flops_per_step(jcfg, jshape), (arch, shape.name)
+            if cfg.family in ("dense", "moe", "vlm") and shape.kind == "decode":
+                cache, t = tmodel.serve_state_specs(cfg, shape)
+                jcache, jt = jmodel.serve_state_specs(jcfg, jshape)
+                assert {k: v.shape for k, v in cache.items()} == \
+                    {k: v.shape for k, v in jcache.items()}
+                assert t.shape == jt.shape and t.dtype == torch.int32
+    cfg = get_config("qwen2-moe-a2.7b")
+    assert tc.count_params(build_model(cfg).param_table()) == 16_807_200_768
+    assert tmodel.active_param_count(cfg) == 5_180_590_080
 
 
 @pytest.mark.parametrize("Sq,Sk,chunk,q_chunk,window,Hq,Hkv", [

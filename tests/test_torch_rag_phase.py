@@ -1,13 +1,15 @@
-"""Phases 10 and 11 of ``chip_smoke.py`` (the build's ablation paths and
-the entry baselines; RAG serving), rehearsed on the CPU.
+"""Phases 10, 11 and 12 of ``chip_smoke.py`` (the build's ablation paths
+and the entry baselines; RAG serving with a dense and with an MoE
+decoder), rehearsed on the CPU.
 
 The phases run on ``repro``'s 400-row serving fixture carried across
 (``pair`` of ``tests/test_torch_serve.py``) with ``dev="cpu"`` (the kernel
 wrappers run their plain versions), ``torch.cuda.synchronize``, the
 CUDA-event timer and the device profiler stubbed out, and small sizes: 40
 evaluation queries, the BFS build on a fresh 200-row database, 8 HBKM
-leaves, and the reduced gemma-2b
-serving 3 requests of 4 queries.  Every check of the phases runs as on
+leaves, and the reduced gemma-2b, then the reduced qwen2-moe-a2.7b (with
+the reduced internvl2-26b for the patch-prefix check), each serving 3
+requests of 4 queries.  Every check of the phases runs as on
 the card; what they return is checked here for shape and consistency,
 not for time.
 """
@@ -15,6 +17,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch import exact_knn, obs
@@ -31,6 +34,7 @@ import chip_smoke  # noqa: E402
 def _stub(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
     monkeypatch.setattr(chip_smoke, "cuda_times",
                         lambda torch, fn, reps: [fn(i) is None or 1.0
                                                  for i in range(reps)])
@@ -119,6 +123,53 @@ def test_rag_phase_rehearsal(pair, monkeypatch):  # noqa: F811
     assert rag["resident_bytes"]["compute_copy"] == 0
     assert chip_smoke.check_rag(torch, np, tidx, rag.pop("check"), "cpu") == 3
     assert not obs.get_tracer().enabled
+
+
+def test_moe_rag_phase_rehearsal(pair, monkeypatch):  # noqa: F811
+    _, tidx = pair
+    _stub(monkeypatch)
+    obs.get_registry().reset()
+    cfg = get_reduced("qwen2-moe-a2.7b")
+    rag = chip_smoke.moe_rag_phase(
+        torch, np, tidx, _queries(tidx, 12, seed=71), "cpu", n_req=3,
+        batch=4, prompt_len=8, doc_len=4, new=3, cfg=cfg,
+        vlm_cfg=get_reduced("internvl2-26b"))
+    assert rag["context_len"] == 4 * 4 + 8
+    assert rag["experts"] == [4, 2, 1] and rag["impl"] == "dense"
+    assert 0 < rag["active_params"] < rag["params"]
+    c = rag["checks"]
+    assert c["router_ties_lowest_first"] and c["greedy_repeatable"]
+    assert c["prefill_decode_rel_err_f64"] <= 1e-12
+    assert c["dropping_vs_dense_rel_err_f64"] <= 1e-12
+    assert c["layer_decode_rel_err_f32"] <= 1e-3
+    assert c["dropped_share_cf_2"] == 0.0  # E/K = 4/2: nothing dropped
+    assert 0.0 <= c["dropped_share_cf_1.25"] < 1.0
+    vlm = rag["vlm"]
+    assert vlm["patches"] == [8, 64] and vlm["layers"] == 2
+    assert vlm["prefill_decode_rel_err_f64"] <= 1e-12
+    sv = rag["serve"]
+    assert len(sv["latency_s"]) == 3 and sv["tokens"] == 3 * 4 * 3
+    assert sv["span_seconds"]["prefill"] > 0 and sv["span_seconds"]["decode"] > 0
+    # reduced configs compute in float32: the parameters are the weights
+    assert rag["resident_bytes"]["compute_copy"] == 0
+    step = rag["decode_step"]
+    assert step["ms"] > 0 and step["prefill_s_per_request"] > 0
+    assert 0 < step["active_bytes"] < step["all_bytes"] == \
+        rag["resident_bytes"]["total"]
+    assert step["bound_ms_active_bytes"] < step["bound_ms_dense_all_bytes"]
+    assert chip_smoke.check_rag(torch, np, tidx, rag.pop("check"), "cpu") == 3
+    assert not obs.get_tracer().enabled
+
+
+def test_moe_rag_phase_fails_over_its_weight_budget(pair, monkeypatch):  # noqa: F811
+    _, tidx = pair
+    _stub(monkeypatch)
+    with pytest.raises(RuntimeError, match="weight bytes resident"):
+        chip_smoke.moe_rag_phase(
+            torch, np, tidx, _queries(tidx, 12, seed=71), "cpu", n_req=1,
+            batch=4, prompt_len=8, doc_len=4, new=2,
+            cfg=get_reduced("qwen2-moe-a2.7b"),
+            vlm_cfg=get_reduced("internvl2-26b"), max_weight_bytes=1e5)
 
 
 def test_layerwise_decode_check_sees_a_broken_cache():
