@@ -102,11 +102,23 @@ Run from the root of a checkout:
    (1e-3); then 8 requests of 32 queries served as in phase 11, each
    held against a plain search at its rung, and the decode step set
    beside its bounds.
+13. Recurrent RAG phase, after phase 12's model is freed: zamba2-1.2b
+   (38 Mamba2 layers, the shared attention block after every 6) and then
+   rwkv6-1.6b (24 layers), each at its published width and depth, weights
+   drawn on the card (seed 0; float32 and a bf16 copy), behind the same
+   kind of RagPipeline: finite logits, two greedy generations equal; in
+   float64, prefill(S+1) against prefill(S) + decode over two contexts
+   (S = 576: the chunked scan's padded tail and the state it hands to the
+   step; 1e-6 relative), the same in float32 reported, and layer 0's
+   chunked scan on its real inputs against a loop of the single-token
+   step (1e-10); then 8 requests of 32 queries served as in phase 11,
+   each held against a plain search at its rung, and the decode step set
+   beside its byte bound, one step profiled.
 
-Phases 3, 5-6 and 8-12 are each driven with the kernel launch counts set
+Phases 3, 5-6 and 8-13 are each driven with the kernel launch counts set
 to 0 just before and read just after: K4-K6 must launch in phase 3, K1-K3
 in phases 5-6, K1/K3 in phase 8, K1-K3 in phase 9, K1, K3 and greedy_assign
-in phase 10, K1/K3 in phases 11 and 12.  Every check that fails raises, so the
+in phase 10, K1/K3 in phases 11, 12 and 13.  Every check that fails raises, so the
 script exits non-zero and prints no result.  The last line is the JSON
 result object; the line before it is the card's name and power limit, and
 the one before that lists every kernel (K1 and K2 at the hop phase's
@@ -2046,6 +2058,177 @@ def moe_rag_phase(torch, np, idx, eval_q, dev, n_req: int = 8,
     return out
 
 
+def rel_err(torch, got, want) -> float:
+    """The largest difference over the largest value of ``want``."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def scan_check(torch, model, params, tokens) -> dict:
+    """Check (d) of phase 13: layer 0's chunked scan on its real inputs
+    (``tokens`` through the embedding and the layer's input side, in the
+    dtype of ``params``) against a loop of the single-token step over the
+    same tokens from a zero state.  Returns the relative errors of the
+    outputs and of the final state."""
+    from repro_torch.models import rwkv as rwkv_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.common import rms_norm
+
+    cfg = model.cfg
+    with torch.no_grad():
+        x = model._embed(params, tokens)
+        p0 = model._layer(params, 0)
+        if cfg.family == "hybrid":
+            _, xh, dt, A, Bm, Cm = ssm_lib.mamba_scan_inputs(p0, x, cfg)
+            y, state = ssm_lib.ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+            st, ys = torch.zeros_like(state), []
+            for s in range(xh.shape[1]):
+                y_s, st = ssm_lib.ssd_decode_step(xh[:, s], dt[:, s], A,
+                                                  Bm[:, s], Cm[:, s], st)
+                ys.append(y_s)
+            chunk = cfg.ssm_chunk
+        else:
+            h = rms_norm(x, p0["ln1"], cfg.norm_eps)
+            r, k, v, logw, _ = model.wkv_inputs(p0, h, rwkv_lib._shift(h))
+            y, state = rwkv_lib.wkv6_chunked(r, k, v, logw, p0["u"],
+                                             cfg.rwkv_chunk)
+            st, ys = torch.zeros_like(state), []
+            for s in range(r.shape[1]):
+                y_s, st = rwkv_lib.wkv6_step(r[:, s], k[:, s], v[:, s],
+                                             logw[:, s], p0["u"], st)
+                ys.append(y_s)
+            chunk = cfg.rwkv_chunk
+    return {"shape": list(tokens.shape), "chunk": chunk,
+            "chunks": -(-tokens.shape[1] // chunk),
+            "output_rel_err": rel_err(torch, y, torch.stack(ys, 1)),
+            "state_rel_err": rel_err(torch, state, st)}
+
+
+def recurrent_rag(torch, np, idx, eval_q, dev, cfg, n_req: int, batch: int,
+                  prompt_len: int, doc_len: int, new: int) -> dict:
+    """One recurrent model of phase 13 (``cfg`` at its published width
+    and depth): weights drawn on the card (seed 0, float32, with their
+    bf16 copy) behind a ``RagPipeline`` (``rag_pipeline``: (a) finite
+    logits, two greedy generations equal); (b) in float64, prefill of
+    S + 1 tokens (one request's context and its first generated token)
+    against prefill(S) + one decode over two rows, 1e-6 relative; (c) the
+    same in float32, reported; (d) ``scan_check`` in float64 at those
+    tokens, 1e-10; (e)-(f) ``rag_serve``; (g) the decode step against its
+    byte bound (the bf16 weights but the embedding, the recurrent state
+    read and written, the KV cache read) and the kernels of one decode
+    step under the profiler."""
+    from repro_torch.models.common import count_params
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    arch = cfg.name
+    model = build_model(cfg)
+    out = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "params": count_params(model.param_table())}
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    engine = ServeEngine(cfg, params, device=dev)
+    del params
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["resident_bytes"] = engine.resident_bytes()
+    pipe, batches, prompts, ctx, g1 = rag_pipeline(
+        np, idx, eval_q, engine, dev, n_req, batch, prompt_len, doc_len, new,
+        out)
+    toks = torch.as_tensor(np.concatenate([ctx[:2], g1.tokens[:2, :1]], 1),
+                           device=dev)  # (2, S + 1)
+    checks = {"finite": True, "greedy_repeatable": True,
+              "tokens_first_row": g1.tokens[0, :8].tolist()}
+    for dt in ("float32", "float64"):
+        e = ServeEngine(cfg.with_(compute_dtype=dt), engine.params, device=dev)
+        checks[f"prefill_decode_rel_err_{dt[-2:]}"] = chained_decode_rel(
+            torch, e.model, e.compute_params, toks)
+        if dt == "float64":
+            checks["scan"] = scan_check(torch, e.model, e.compute_params, toks)
+        del e
+        torch.cuda.empty_cache()
+    require(checks["prefill_decode_rel_err_64"] <= 1e-6,
+            f"{arch}: float64 prefill(S+1) and prefill(S)+decode differ by "
+            f"{checks['prefill_decode_rel_err_64']:.3g} relative > 1e-6")
+    sc = checks["scan"]
+    require(max(sc["output_rel_err"], sc["state_rel_err"]) <= 1e-10,
+            f"{arch}: float64 chunked scan off its step loop by "
+            f"{sc['output_rel_err']:.3g} / {sc['state_rel_err']:.3g} > 1e-10")
+    out["checks"] = checks
+    log(f"recurrent model checks ({arch}): " + json.dumps(checks))
+    out.update(rag_serve(torch, np, idx, pipe, batches, prompts, new, dev,
+                         tag=f"{arch} rag"))
+
+    # (g) the decode step against its byte bound, and one step profiled
+    steps = n_req * new
+    dec_s = out["serve"]["span_seconds"]["decode"]
+    S = out["context_len"]
+    specs = model.cache_specs(batch, S + new)
+    nbytes = {k: int(np.prod(v.shape)) * v.dtype.itemsize
+              for k, v in specs.items()}
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in engine.compute_params.items() if n != "tok_embed")
+    state = sum(b for k, b in nbytes.items() if k not in ("k", "v", "pos"))
+    kv = sum(b for k, b in nbytes.items() if k in ("k", "v", "pos"))
+    moved = weights + 2 * state + kv
+    with torch.no_grad():
+        cp = engine.compute_params
+        ctx_d = torch.as_tensor(ctx, device=dev)
+        _, cache = model.prefill(cp, {"tokens": ctx_d}, capacity=S + new)
+        tok = torch.as_tensor(g1.tokens[:, :1], device=dev)
+        t = torch.full((batch,), S, dtype=torch.int32, device=dev)
+
+        def step():
+            model.decode(cp, tok, cache, t)
+
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof = profile_call(torch, step, time.perf_counter() - t0)
+        del cache
+    out["decode_step"] = {
+        "ms": dec_s / steps * 1e3 if steps else None,
+        "prefill_s_per_request": out["serve"]["span_seconds"]["prefill"] / n_req,
+        "bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "bytes": moved, "weight_bytes": weights, "state_bytes": state,
+        "kv_bytes": kv, "profiled_step": prof}
+    log(f"{arch} decode step against its bound: " + json.dumps(
+        {k: v for k, v in out["decode_step"].items() if k != "profiled_step"}))
+    log(f"{arch} profile, one decode step: " + json.dumps(prof))
+    del pipe, engine
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def recurrent_rag_phase(torch, np, idx, eval_q, dev, n_req: int = 8,
+                        batch: int = 32, prompt_len: int = 64,
+                        doc_len: int = 128, new: int = 32,
+                        cfgs=None) -> dict:
+    """RAG serving with the recurrent families at full width and depth
+    (phase 13): ``recurrent_rag`` for each of ``cfgs`` (default zamba2-1.2b
+    and rwkv6-1.6b, published configs) in turn, each freed before the
+    next.  Returns {arch: record, "check": [each one's ``check``],
+    "seconds"}."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    if cfgs is None:
+        cfgs = [get_config("zamba2-1.2b"), get_config("rwkv6-1.6b")]
+    out = {"check": []}
+    for cfg in cfgs:
+        rec = recurrent_rag(torch, np, idx, eval_q, dev, cfg, n_req, batch,
+                            prompt_len, doc_len, new)
+        out["check"].append(rec.pop("check"))
+        out[cfg.name] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 CSRC = "src/repro_torch/csrc/"
 SOURCES = {"gather_rows_dist": CSRC + "gather_dist.cu",
            "gather_rows_dist_q8": CSRC + "gather_dist.cu",
@@ -2073,7 +2256,8 @@ def _at_shape(rec: dict) -> dict:
 
 def kernels_line(kres, api, hop, launches, serve_launches,
                  feedback_launches, single, greedy, ablation_launches=None,
-                 rag_launches=None, moe_rag_launches=None) -> list:
+                 rag_launches=None, moe_rag_launches=None,
+                 recurrent_rag_launches=None) -> list:
     """One entry per kernel for the line before the last: K1 and K2 at the
     10,000-query search's own calls (hop phase) with their fixed (1024, 32)
     rows beside them, and K1 at the single-query search's (1, R) calls
@@ -2082,9 +2266,10 @@ def kernels_line(kres, api, hop, launches, serve_launches,
     beside them; K6 at bench_kernels.py's; ``greedy_assign`` (port-only)
     at its 20,000-row slice with the 1M root split beside it (``greedy``).
     K1-K3 count their launches on the search, serve, feedback, ablation
-    and both RAG paths, ``greedy_assign`` on the ablation path."""
+    and the three RAG paths, ``greedy_assign`` on the ablation path."""
     extra = {"ablations": ablation_launches or {}, "rag": rag_launches or {},
-             "rag_moe": moe_rag_launches or {}}
+             "rag_moe": moe_rag_launches or {},
+             "rag_recurrent": recurrent_rag_launches or {}}
     hop_of = {"gather_rows_dist": "fused_l2", "gather_rows_dist_q8": "fused_q8_l2"}
     comp = api["composed_top10"]
     line = []
@@ -2404,6 +2589,29 @@ def main(argv=None) -> int:
         log(f"phase 12: {moe_rag['seconds']:.1f} s, "
             f"{moe_rag['requests_checked']} requests' ids equal a plain "
             "search at their rung")
+
+        # 13. retrieval-augmented serving with the recurrent families at
+        # full width and depth, after phase 12's model is freed; its own
+        # counts
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"memory before phase 13: {torch.cuda.memory_allocated()} bytes")
+        K.reset_launch_counts()
+        rec_rag = recurrent_rag_phase(torch, np, idx, eval_q, dev)
+        rec_rag_launches = K.launch_counts()
+        log("launches on the recurrent RAG path: "
+            + json.dumps(rec_rag_launches))
+        for name in ("gather_rows_dist", "twotower_score"):
+            require(rec_rag_launches[name] > 0,
+                    f"kernel {name} was not launched on the recurrent RAG "
+                    "path")
+        rec_rag["requests_checked"] = sum(
+            check_rag(torch, np, idx, c, dev) for c in rec_rag.pop("check"))
+        rec_rag["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"phase 13: {rec_rag['seconds']:.1f} s, "
+            f"{rec_rag['requests_checked']} requests' ids equal a plain "
+            "search at their rung")
         t0 = time.perf_counter()
         abl["bfs"]["projection_full_size"] = bfs_projection(
             bfs_job.get(timeout=600), bfs_targets)
@@ -2413,7 +2621,7 @@ def main(argv=None) -> int:
 
     line = kernels_line(kres, api, hop, launches, serve_launches,
                         fb_launches, single, greedy, abl_launches,
-                        rag_launches, moe_rag_launches)
+                        rag_launches, moe_rag_launches, rec_rag_launches)
     record = {
         "card": smi, "n": args.n, "queries": args.queries,
         "timing_floor_ms": floor_ms,
@@ -2432,6 +2640,7 @@ def main(argv=None) -> int:
         "ablations": abl, "ablation_launches": abl_launches,
         "greedy_assign": greedy, "rag": rag, "rag_launches": rag_launches,
         "moe_rag": moe_rag, "moe_rag_launches": moe_rag_launches,
+        "recurrent_rag": rec_rag, "recurrent_rag_launches": rec_rag_launches,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

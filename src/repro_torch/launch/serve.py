@@ -5,11 +5,14 @@
         --db-size 4000 --k 4 --kernel fused --metrics-port 9100
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --rag \\
         --kernel fused
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --rag --kernel fused
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --rag --kernel fused
 
 Everything runs on ``--device`` (default ``cuda``; ``--device cpu`` runs
 the kernels' plain versions).  The weights are random, drawn from
 ``--seed``; where the compute dtype is not the parameter dtype they are
-drawn straight into it (``DecoderLM.init_compute``), so a model whose
+drawn straight into it (every model's ``init_compute``; the hybrid and
+RWKV families keep the weights they read in float32), so a model whose
 float32 parameters would not fit beside their bf16 copy (qwen2-moe-a2.7b:
 67.2 GB and 33.6 GB) holds only the latter.  ``--metrics-port`` exposes
 the live metrics registry over HTTP for the run (Prometheus text at

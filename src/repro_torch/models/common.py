@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -77,6 +78,54 @@ def init_params(table: Dict[str, ParamSpec], generator: torch.Generator,
 
 def count_params(table: Dict[str, ParamSpec]) -> int:
     return sum(int(np.prod(s.shape)) for s in table.values())
+
+
+class FlatParamsLM(nn.Module):
+    """A model over a flat parameter dict.  Holds no tensors: ``init``
+    returns the dict, and ``forward`` (``loss``), ``prefill`` and
+    ``decode`` take one.  A family names in ``KEEP`` the weights that
+    ``repro`` reads in float32 (norms, decay and step parameters):
+    ``compute_params`` leaves those as they are, since cast to bf16 and
+    back they would carry bits ``repro`` never sees."""
+
+    KEEP: Tuple[str, ...] = ()
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+
+    def param_table(self) -> Dict[str, ParamSpec]:
+        raise NotImplementedError
+
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        """Random parameters from ``generator`` (on its device unless
+        ``device`` is given), in ``param_dtype``."""
+        return init_params(self.param_table(), generator, self.cfg.param_dtype,
+                           device)
+
+    def compute_params(self, params: Params) -> Params:
+        """The parameters as every use reads them: cast once to the compute
+        dtype (``repro`` casts at every use, which gives the same bits),
+        ``KEEP`` left as they are.  The same tensors when they already
+        are."""
+        dt = torch_dtype(self.cfg.compute_dtype)
+        return {n: p if n in self.KEEP else p.to(dt)
+                for n, p in params.items()}
+
+    def init_compute(self, generator: torch.Generator, device=None) -> Params:
+        """``compute_params(init(generator))``, bit for bit, without the
+        parameters: each tensor is drawn as ``init`` draws it (same
+        generator, sorted name order) and cast at once, so at most one
+        parameter-dtype tensor is alive at a time."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.compute_dtype)
+        table = self.param_table()
+        out = {}
+        for n in sorted(table):
+            p = init_param(generator, table[n], cfg.param_dtype, device)
+            out[n] = p if n in self.KEEP else p.to(dt)
+            del p  # before the next draw, not after it
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -281,3 +330,11 @@ def cross_entropy(
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
+
+
+def next_token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of each position's logits (B, S, V) against the
+    next position's label; label -1 is ignored."""
+    mask = (labels[:, 1:] >= 0).to(torch.float32)
+    return cross_entropy(logits[:, :-1], torch.clamp_min(labels[:, 1:], 0),
+                         mask)

@@ -1,13 +1,14 @@
 """Model factory, input specs and analytic counts (counterpart of
 ``repro.models.model``).
 
-The port builds the dense, MoE and VLM families (``DecoderLM``); every
-other family raises and names the ROADMAP item that ports it.
-``make_inputs`` draws the same batches as ``repro``'s from the same seed;
-``make_cache`` is a zero cache with ``filled`` valid positions.
-``active_param_count`` and ``model_flops_per_step`` are ``repro``'s
-formulas, pure Python, over every family's parameter table
-(``param_table``; the families not run yet have theirs in
+The port builds the dense, MoE and VLM families (``DecoderLM``), the
+hybrid (``HybridLM``) and RWKV (``RWKVLM``); the enc-dec audio family
+raises and names the ROADMAP item that ports it.  ``make_inputs`` draws
+the same batches as ``repro``'s from the same seed; ``make_cache`` is a
+zero cache with ``filled`` valid positions (a state with no ``pos``, as
+RWKV's, is all zeros).  ``active_param_count`` and
+``model_flops_per_step`` are ``repro``'s formulas, pure Python, over
+every family's parameter table (``param_table``; the audio family's is in
 ``models.tables``).
 """
 from __future__ import annotations
@@ -19,24 +20,24 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models.common import ParamSpec, torch_dtype
-from repro_torch.models.tables import (
-    encdec_param_table,
-    hybrid_param_table,
-    rwkv_param_table,
-)
+from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.rwkv import RWKVLM
+from repro_torch.models.tables import encdec_param_table
 from repro_torch.models.transformer import FAMILIES, DecoderLM, TensorSpec
 
 # family -> where ROADMAP A6 ports it
 _NOT_PORTED = {
-    "hybrid": "ROADMAP A6: hybrid / SSM / RWKV come next",
-    "ssm": "ROADMAP A6: hybrid / SSM / RWKV come next",
-    "audio": "ROADMAP A6: the enc-dec audio model follows the SSM family",
+    "audio": "ROADMAP A6: the enc-dec audio model comes next",
 }
 
 
 def build_model(cfg: ModelConfig):
     if cfg.family in FAMILIES:
         return DecoderLM(cfg)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
+    if cfg.family == "ssm":
+        return RWKVLM(cfg)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"build_model: family {cfg.family!r} ({cfg.name}) is not ported "
@@ -46,13 +47,9 @@ def build_model(cfg: ModelConfig):
 
 def param_table(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """The parameter table of ``cfg``'s model, of every family."""
-    if cfg.family in FAMILIES:
-        return DecoderLM(cfg).param_table()
-    tables = {"hybrid": hybrid_param_table, "ssm": rwkv_param_table,
-              "audio": encdec_param_table}
-    if cfg.family not in tables:
-        raise ValueError(cfg.family)
-    return tables[cfg.family](cfg)
+    if cfg.family == "audio":
+        return encdec_param_table(cfg)
+    return build_model(cfg).param_table()
 
 
 def _i32(*shape) -> TensorSpec:

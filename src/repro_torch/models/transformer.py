@@ -11,10 +11,11 @@ over every valid slot, which covers full attention (cache_len == seq_len)
 and SWA rolling buffers (cache_len == window) with the same code.
 
 Each weight is used in the compute dtype (``repro`` casts it at every use);
-``compute_params`` makes that cast once, and the norm weights stay float32,
-which is the dtype ``rms_norm`` reads them in.  ``init_compute`` draws the
-weights straight into that form, one tensor at a time, for a model whose
-float32 parameters do not fit beside their copy.
+``compute_params`` (``FlatParamsLM``) makes that cast once, and the norm
+weights stay float32, which is the dtype ``rms_norm`` reads them in.
+``init_compute`` draws the weights straight into that form, one tensor at
+a time, for a model whose float32 parameters do not fit beside their
+copy.
 
 The MoE family's MLP is ``repro_torch.models.moe.moe_ffn``, whose router
 aux term ``loss`` adds in; the VLM family takes precomputed patch
@@ -27,21 +28,19 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
+    FlatParamsLM,
     ParamSpec,
     Params,
     apply_rope,
     blockwise_attention,
     cache_update,
-    cross_entropy,
     decode_attention,
     glu_mlp,
-    init_param,
-    init_params,
+    next_token_ce,
     rms_norm,
     scalar_in,
     torch_dtype,
@@ -56,18 +55,18 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-class DecoderLM(nn.Module):
-    """The decoder of the dense, MoE and VLM families.  Holds no tensors:
-    ``init`` returns a parameter dict, and ``forward`` (``loss``),
-    ``prefill`` and ``decode`` take one."""
+class DecoderLM(FlatParamsLM):
+    """The decoder of the dense, MoE and VLM families; ``rms_norm`` reads
+    the norm weights in float32."""
+
+    KEEP = NORMS
 
     def __init__(self, cfg: ModelConfig):
-        super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"DecoderLM: {cfg.name} is family {cfg.family!r}, not one of "
                 f"{FAMILIES} (ROADMAP A6 ports the other families)")
-        self.cfg = cfg
+        super().__init__(cfg)
 
     # ------------------------------------------------------------------ params
     def param_table(self) -> Dict[str, ParamSpec]:
@@ -113,34 +112,6 @@ class DecoderLM(nn.Module):
             t["patch_norm"] = ParamSpec((cfg.patch_dim,), ("norm",),
                                         init="zeros")
         return t
-
-    def init(self, generator: torch.Generator, device=None) -> Params:
-        """Random parameters from ``generator`` (on its device unless
-        ``device`` is given), in ``param_dtype``."""
-        return init_params(self.param_table(), generator, self.cfg.param_dtype,
-                           device)
-
-    def compute_params(self, params: Params) -> Params:
-        """The parameters as every use reads them: cast once to the compute
-        dtype, the norm weights left as they are (``rms_norm`` reads them in
-        float32).  The same tensors when they already are."""
-        dt = torch_dtype(self.cfg.compute_dtype)
-        return {n: p if n in NORMS else p.to(dt) for n, p in params.items()}
-
-    def init_compute(self, generator: torch.Generator, device=None) -> Params:
-        """``compute_params(init(generator))``, bit for bit, without the
-        parameters: each tensor is drawn as ``init`` draws it (same
-        generator, sorted name order) and cast at once, so at most one
-        float32 tensor is alive at a time."""
-        cfg = self.cfg
-        dt = torch_dtype(cfg.compute_dtype)
-        table = self.param_table()
-        out = {}
-        for n in sorted(table):
-            p = init_param(generator, table[n], cfg.param_dtype, device)
-            out[n] = p if n in NORMS else p.to(dt)
-            del p  # before the next draw, not after it
-        return out
 
     # ----------------------------------------------------------------- pieces
     def _layer_names(self):
@@ -289,9 +260,7 @@ class DecoderLM(nn.Module):
                                      collect_kv=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x)
-        mask = (labels[:, 1:] >= 0).to(torch.float32)
-        ce = cross_entropy(logits[:, :-1], torch.clamp_min(labels[:, 1:], 0),
-                           mask)
+        ce = next_token_ce(logits, labels)
         if aux is None:
             return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
         return ce + cfg.moe.router_aux_coef * aux, {"ce": ce, "aux": aux}

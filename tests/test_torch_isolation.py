@@ -110,8 +110,8 @@ def test_public_surface_resolves_without_jax():
     """Every name of ``repro_torch.__all__`` (``repro``'s export table, plus
     ``exact_knn`` and ``recall_at_k``) and of ``repro_torch.core`` /
     ``repro_torch.graphs`` / ``repro_torch.models`` / ``repro_torch.serve``
-    resolves, and the LM configs, models (the MoE module among them) and
-    launcher import, in a fresh interpreter that has loaded neither
+    resolves, and the LM configs, models (the MoE, SSM, hybrid and RWKV
+    modules among them) and launcher import, in a fresh interpreter that has loaded neither
     ``jax`` nor ``repro`` afterwards."""
     code = (
         "import sys, repro_torch, repro_torch.core as c, repro_torch.graphs as g\n"
@@ -119,7 +119,11 @@ def test_public_surface_resolves_without_jax():
         "import repro_torch.configs as cf, repro_torch.launch.serve\n"
         "import repro_torch.core.baselines, repro_torch.train.optim\n"
         "import repro_torch.models.moe as moe, repro_torch.models.tables\n"
+        "import repro_torch.models.ssm as ssm, repro_torch.models.hybrid as hy\n"
+        "import repro_torch.models.rwkv as rw\n"
         "assert callable(moe.moe_ffn) and callable(moe.moe_param_table)\n"
+        "assert callable(ssm.ssd_chunked) and callable(rw.wkv6_chunked)\n"
+        "assert mo.HybridLM is hy.HybridLM and mo.RWKVLM is rw.RWKVLM\n"
         "for m in (repro_torch, c, g, mo, sv, cf):\n"
         "    for n in m.__all__:\n"
         "        assert getattr(m, n) is not None, n\n"

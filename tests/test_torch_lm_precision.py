@@ -1,6 +1,7 @@
-"""LM stack precision: the port's bf16 compute against ``repro``'s, the
-one-time bf16 weight copy against a cast at every use, and the float32
-prefill/decode gap of a random gemma-2b, on the CPU.
+"""LM stack precision: the port's bf16 compute against ``repro``'s (the
+dense, MoE, hybrid and RWKV families), the weights each family keeps in
+float32, the one-time bf16 weight copy against a cast at every use, and
+the float32 prefill/decode gap of a random gemma-2b, on the CPU.
 
 ``repro`` draws the weights (``jax.random``); ``convert.lm_params_from_numpy``
 carries them across.  Tolerances are stated in each test.
@@ -130,6 +131,81 @@ def test_prefill_then_decode_match_bfloat16(arch, monkeypatch):
         for (jids, margin), tids in zip(jrec, trec):
             same = (np.sort(jids, -1) == np.sort(tids, -1)).all(-1)
             assert same[margin > 2.0 ** -7].all(), (arch, margin[~same])
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b"])
+def test_recurrent_prefill_then_decode_match_bfloat16(arch):
+    """bf16 compute of the recurrent families against ``repro``'s on the
+    same weights: prefill logits and state, then 4 decode steps, each held
+    to a mean relative error of 4e-2 against ``repro`` (rwkv6 reads up to
+    1.0e-2, zamba2 2.8e-2), with every state entry in ``repro``'s dtype;
+    and the port's logits no further from a float64 run of the same
+    weights than 1.2 times ``repro``'s (zamba2: 4.2e-2 against 5.0e-2 at
+    the worst step).  zamba2's shared ``s_wq`` / ``s_wk`` are scaled to std
+    1/sqrt(d), as in ``test_torch_hybrid.py``: at ``repro``'s init (std
+    0.5) its attention is almost one-hot and the two bf16 chains part by
+    up to 0.5."""
+    B, S, steps = 2, 40, 4
+    jcfg = j_get_reduced(arch).with_(remat=False, compute_dtype="bfloat16")
+    tcfg = get_reduced(arch).with_(compute_dtype="bfloat16")
+    jm, tm = j_build_model(jcfg), build_model(tcfg)
+    jp = dict(jm.init(jax.random.PRNGKey(1)))
+    if tcfg.family == "hybrid":
+        f = float(np.sqrt(tcfg.num_heads / tcfg.d_model))
+        jp["s_wq"], jp["s_wk"] = jp["s_wq"] * f, jp["s_wk"] * f
+    raw = lm_params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    m64 = build_model(tcfg.with_(compute_dtype="float64"))
+    toks = np.random.default_rng(3).integers(
+        2, tcfg.vocab_size, (B, S + steps)).astype(np.int32)
+    want, jcache = _decode_chain(
+        lambda t, cap: jm.prefill(jp, {"tokens": jnp.asarray(t)},
+                                  capacity=cap),
+        lambda t, pos, c: jm.decode(jp, jnp.asarray(t), c, jnp.asarray(pos)),
+        toks, S, steps)
+    with torch.no_grad():
+        chains = [_decode_chain(
+            lambda t, cap: m.prefill(p, {"tokens": _t(t)}, capacity=cap),
+            lambda t, pos, c: m.decode(p, _t(t), c, _t(pos)),
+            toks, S, steps) for m, p in ((tm, tm.compute_params(raw)),
+                                         (m64, m64.compute_params(raw)))]
+    (got, tcache), (exact, _) = chains
+    assert got[0].dtype == torch.bfloat16
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _mean_rel(g.float(), w) <= 4e-2, (arch, i)
+    assert set(tcache) == set(jcache)
+    for f in tcache:
+        assert str(tcache[f].dtype).split(".")[-1] == str(jcache[f].dtype), f
+        if f != "pos":
+            assert _mean_rel(tcache[f].float(), jcache[f]) <= 4e-2, (arch, f)
+    port = max(_mean_rel(g.float(), e.float()) for g, e in zip(got, exact))
+    ref = max(_mean_rel(np.asarray(w, np.float32), e.float())
+              for w, e in zip(want, exact))
+    assert port <= 1.2 * ref, (arch, port, ref)
+
+
+@pytest.mark.parametrize("arch, keep", [
+    ("gemma-2b", {"final_norm", "attn_norm", "mlp_norm"}),
+    ("zamba2-1.2b", {"final_norm", "s_attn_norm", "s_mlp_norm", "m/m_norm",
+                     "m/dt_bias", "m/A_log"}),
+    ("rwkv6-1.6b", {"ln0", "ln1", "ln2", "final_norm", "decay_base",
+                    "dec_w1", "dec_w2", "u", "ln_x_scale", "ln_x_bias"}),
+])
+def test_compute_params_keep_what_repro_reads_in_float32(arch, keep):
+    """In a bf16 model, ``compute_params`` leaves exactly the weights that
+    ``repro`` reads in float32 as they are (the norms; Mamba's step bias
+    and decay rate; RWKV's decay, its LoRA, the bonus ``u`` and ln_x):
+    cast to bf16 and back they would carry bits ``repro``'s bf16 path
+    never sees.  Every other weight is bf16."""
+    cfg = get_reduced(arch).with_(compute_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    cp = model.compute_params(params)
+    assert keep <= set(cp)
+    for n, p in cp.items():
+        if n in keep:
+            assert p is params[n] and p.dtype == torch.float32, n
+        else:
+            assert p.dtype == torch.bfloat16, n
 
 
 def test_one_time_bf16_copy_is_a_cast_at_every_use():

@@ -8,7 +8,10 @@ across.  Reduced configs compute in float32.
 The cases cover the dense family (gemma-2b, llama3-8b, and llama3-8b
 with a 16-position window), the MoE family (qwen2-moe-a2.7b with shared
 experts; mixtral-8x22b, also with a 16-position window) and the VLM
-(internvl2-26b, whose prefill and loss take patch embeddings).
+(internvl2-26b, whose prefill and loss take patch embeddings); the hybrid
+and RWKV families have their own files (``test_torch_hybrid.py``,
+``test_torch_rwkv.py``), and here their tables, counts, serve state and
+``init_compute``.
 
 Tolerances: parameter names and shapes equal; prefill logits and caches,
 then 4 decode steps, within 1e-4 (fp32 products and sums in another
@@ -100,7 +103,7 @@ def test_configs_are_the_references():
 
 
 def test_other_families_raise_naming_the_roadmap():
-    for arch in ("zamba2-1.2b", "rwkv6-1.6b", "seamless-m4t-medium"):
+    for arch in ("seamless-m4t-medium",):
         with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             build_model(get_reduced(arch))
 
@@ -135,10 +138,13 @@ def test_make_inputs_and_cache_are_the_references():
         assert set(got) == set(want)
         for k in got:
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-    got = make_cache(cfg, 2, 24, filled=5, device="cpu")
-    want = j_make_cache(j_get_reduced("llama3-8b"), 2, 24, filled=5)
-    for k in got:
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    for arch in ("llama3-8b", "zamba2-1.2b", "rwkv6-1.6b"):
+        got = make_cache(get_reduced(arch), 2, 24, filled=5, device="cpu")
+        want = j_make_cache(j_get_reduced(arch), 2, 24, filled=5)
+        assert list(got) == list(want), arch
+        for k in got:
+            assert str(got[k].dtype).split(".")[-1] == str(want[k].dtype)
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 def test_prefill_then_decode_match(pair):
@@ -196,10 +202,19 @@ def test_loss_matches(pair):
         assert float(tmet["aux"]) == 0.0 and float(tl) == float(tmet["ce"])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "internvl2-26b"])
+# arch -> (a weight left in float32, a weight cast to the compute dtype)
+KEPT_AND_CAST = {"qwen2-moe-a2.7b": ("mlp_norm", "wq"),
+                 "internvl2-26b": ("patch_norm", "wq"),
+                 "zamba2-1.2b": ("m/A_log", "s_wq"),
+                 "rwkv6-1.6b": ("dec_w2", "wr")}
+
+
+@pytest.mark.parametrize("arch", list(KEPT_AND_CAST))
 def test_init_compute_is_compute_params_of_init(arch):
     """Drawn straight into the compute dtype, the weights are the bits
-    that ``init`` then ``compute_params`` give, norms left in float32."""
+    that ``init`` then ``compute_params`` give, the family's float32
+    weights (norms; the recurrent families' decay and step parameters)
+    left in float32."""
     cfg = get_reduced(arch).with_(compute_dtype="bfloat16")
     model = build_model(cfg)
     want = model.compute_params(model.init(torch.Generator().manual_seed(3)))
@@ -207,9 +222,9 @@ def test_init_compute_is_compute_params_of_init(arch):
     assert list(got) == list(want)
     for n in want:
         assert got[n].dtype == want[n].dtype and torch.equal(got[n], want[n]), n
-    assert got["patch_norm" if cfg.family == "vlm" else "mlp_norm"].dtype == \
-        torch.float32
-    assert got["wq"].dtype == torch.bfloat16
+    kept, cast = KEPT_AND_CAST[arch]
+    assert got[kept].dtype == torch.float32
+    assert got[cast].dtype == torch.bfloat16
 
 
 def test_vlm_batch_specs_and_inputs_are_the_references():
@@ -249,15 +264,22 @@ def test_active_params_flops_and_serve_state_are_the_references():
         for shape, jshape in zip(LM_SHAPES, J_SHAPES):
             assert tmodel.model_flops_per_step(cfg, shape) == \
                 jmodel.model_flops_per_step(jcfg, jshape), (arch, shape.name)
-            if cfg.family in ("dense", "moe", "vlm") and shape.kind == "decode":
+            if cfg.family != "audio" and shape.kind == "decode":
                 cache, t = tmodel.serve_state_specs(cfg, shape)
                 jcache, jt = jmodel.serve_state_specs(jcfg, jshape)
-                assert {k: v.shape for k, v in cache.items()} == \
-                    {k: v.shape for k, v in jcache.items()}
+                assert {k: (v.shape, str(v.dtype).split(".")[-1])
+                        for k, v in cache.items()} == \
+                    {k: (v.shape, str(v.dtype)) for k, v in jcache.items()}
                 assert t.shape == jt.shape and t.dtype == torch.int32
     cfg = get_config("qwen2-moe-a2.7b")
     assert tc.count_params(build_model(cfg).param_table()) == 16_807_200_768
     assert tmodel.active_param_count(cfg) == 5_180_590_080
+    # the recurrent families at full width and depth fit one card whole
+    for arch, n in (("zamba2-1.2b", 1_170_138_240),
+                    ("rwkv6-1.6b", 1_599_770_624)):
+        table = build_model(get_config(arch)).param_table()
+        assert tc.count_params(table) == tmodel.active_param_count(
+            get_config(arch)) == n, arch
 
 
 @pytest.mark.parametrize("Sq,Sk,chunk,q_chunk,window,Hq,Hkv", [

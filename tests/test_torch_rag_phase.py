@@ -1,6 +1,6 @@
-"""Phases 10, 11 and 12 of ``chip_smoke.py`` (the build's ablation paths
-and the entry baselines; RAG serving with a dense and with an MoE
-decoder), rehearsed on the CPU.
+"""Phases 10, 11, 12 and 13 of ``chip_smoke.py`` (the build's ablation
+paths and the entry baselines; RAG serving with a dense, an MoE and the
+recurrent decoders), rehearsed on the CPU.
 
 The phases run on ``repro``'s 400-row serving fixture carried across
 (``pair`` of ``tests/test_torch_serve.py``) with ``dev="cpu"`` (the kernel
@@ -9,7 +9,8 @@ CUDA-event timer and the device profiler stubbed out, and small sizes: 40
 evaluation queries, the BFS build on a fresh 200-row database, 8 HBKM
 leaves, and the reduced gemma-2b, then the reduced qwen2-moe-a2.7b (with
 the reduced internvl2-26b for the patch-prefix check), each serving 3
-requests of 4 queries.  Every check of the phases runs as on
+requests of 4 queries, and the reduced zamba2-1.2b and rwkv6-1.6b, each
+serving 2.  Every check of the phases runs as on
 the card; what they return is checked here for shape and consistency,
 not for time.
 """
@@ -158,6 +159,46 @@ def test_moe_rag_phase_rehearsal(pair, monkeypatch):  # noqa: F811
         rag["resident_bytes"]["total"]
     assert step["bound_ms_active_bytes"] < step["bound_ms_dense_all_bytes"]
     assert chip_smoke.check_rag(torch, np, tidx, rag.pop("check"), "cpu") == 3
+    assert not obs.get_tracer().enabled
+
+
+def test_recurrent_rag_phase_rehearsal(pair, monkeypatch):  # noqa: F811
+    """Phase 13 with the reduced zamba2-1.2b and rwkv6-1.6b, 2 requests of
+    4 queries each: 40-token contexts, so the float64 checks' 41 tokens
+    run 2 SSD chunks of 32 and 3 WKV chunks of 16, each with a padded
+    tail."""
+    _, tidx = pair
+    _stub(monkeypatch)
+    obs.get_registry().reset()
+    cfgs = [get_reduced("zamba2-1.2b"), get_reduced("rwkv6-1.6b")]
+    rag = chip_smoke.recurrent_rag_phase(
+        torch, np, tidx, _queries(tidx, 8, seed=72), "cpu", n_req=2,
+        batch=4, prompt_len=8, doc_len=8, new=3, cfgs=cfgs)
+    checks = rag.pop("check")
+    assert len(checks) == 2 and rag["seconds"] > 0
+    for cfg in cfgs:
+        r = rag[cfg.name]
+        assert r["family"] == cfg.family and r["context_len"] == 4 * 8 + 8
+        c = r["checks"]
+        assert c["finite"] and c["greedy_repeatable"]
+        assert c["prefill_decode_rel_err_64"] <= 1e-12
+        assert c["prefill_decode_rel_err_32"] <= 1e-4
+        sc = c["scan"]
+        assert sc["shape"] == [2, 41]
+        assert sc["chunks"] == (2 if cfg.family == "hybrid" else 3)
+        assert sc["output_rel_err"] <= 1e-12 and sc["state_rel_err"] <= 1e-12
+        sv = r["serve"]
+        assert len(sv["latency_s"]) == 2 and sv["tokens"] == 2 * 4 * 3
+        assert sv["span_seconds"]["prefill"] > 0
+        step = r["decode_step"]
+        assert step["ms"] > 0 and step["bound_by"] == "bytes"
+        # reduced configs compute in float32: the weights are the params
+        assert step["weight_bytes"] < r["resident_bytes"]["params"]
+        assert step["bytes"] == (step["weight_bytes"] + 2 * step["state_bytes"]
+                                 + step["kv_bytes"])
+        assert (step["kv_bytes"] > 0) == (cfg.family == "hybrid")
+    for c in checks:
+        assert chip_smoke.check_rag(torch, np, tidx, c, "cpu") == 2
     assert not obs.get_tracer().enabled
 
 
