@@ -114,17 +114,50 @@ Run from the root of a checkout:
    step (1e-10); then 8 requests of 32 queries served as in phase 11,
    each held against a plain search at its rung, and the decode step set
    beside its byte bound, one step profiled.
+14. Training phase, after phase 13's models are freed (no kernel of the
+   port is on this path: the enc-dec and training path reaches no Pallas
+   kernel in the JAX package).  The drawn init of seamless-m4t-medium
+   (wq / wk std 1/sqrt(H)) makes every attention almost one-hot, which
+   multiplies rounding with depth and makes the gradients explode, so the
+   gated checks below scale every attention's wq / wk to std 1/sqrt(d),
+   as the CPU parity tests do, and report the drawn init beside them.
+   (a) seamless-m4t-medium at its published width and depth (12 + 12
+   layers, 977,758,208 parameters drawn on the card, seed 0, float32 and
+   a bf16 copy): two greedy generations of 32 tokens after a 128-token
+   prompt and 512 frames a row (4 rows) equal, every logit finite,
+   prefill(129) against prefill(128) + decode in float64, scaled (1e-6),
+   one decode step profiled beside its byte bound; (b)
+   ``repro_torch.launch.train.main`` trains it 12 steps of 8 x 512 with
+   2 microbatches at the drawn init and scaled: finite losses and grad
+   norms, the scaled run's last loss below its first; median step,
+   tokens/s, peak memory, mfu, one more step profiled; (c) in float32 on
+   one batch, one sgd step with 1 microbatch against 2 (scaled: loss rtol
+   1e-4, parameters rtol 2e-3 / atol 2e-5, gradients 1e-4) and remat on
+   against off (every gradient leaf 1e-6); (d) six families' reduced
+   configs in float64, one train step's gradients on the card against
+   the CPU (1e-10); (e) in a spawned process under the deterministic
+   flag, a FaultTolerantRunner over 8 steps of the reduced
+   seamless-m4t-medium with failures at steps 3 and 5 ends on the bits of
+   an uninterrupted run.
 
-Phases 3, 5-6 and 8-13 are each driven with the kernel launch counts set
-to 0 just before and read just after: K4-K6 must launch in phase 3, K1-K3
-in phases 5-6, K1/K3 in phase 8, K1-K3 in phase 9, K1, K3 and greedy_assign
-in phase 10, K1/K3 in phases 11, 12 and 13.  Every check that fails raises, so the
-script exits non-zero and prints no result.  The last line is the JSON
-result object; the line before it is the card's name and power limit, and
-the one before that lists every kernel (K1 and K2 at the hop phase's
-10,000-query calls, K3 at both of its shapes, K4 and K5 at both of
-theirs, greedy_assign at its slice and root split).  ``--out FILE`` also writes the full record there as JSON.  Exits
-non-zero without a CUDA card or outside a checkout.
+Phases 3, 5-6 and 8-14 are each driven with the kernel launch counts set
+to 0 just before and read just after.  Each phase's kernel-launch
+requirement:
+   phase 3        K4 (topk_min), K5 (l2dist), K6 (gather_dist)
+   phases 5-6     K1 (gather_rows_dist), K2 (gather_rows_dist_q8), K3
+                  (twotower_score)
+   phase 8        K1, K3
+   phase 9        K1, K2, K3
+   phase 10       K1, K3, greedy_assign
+   phases 11-13   K1, K3
+   phase 14       none (its counts are logged)
+Every check that fails raises, so the script exits non-zero and prints no
+result.  The last line is the JSON result object; the line before it is
+the card's name and power limit, and the one before that lists every
+kernel (K1 and K2 at the hop phase's 10,000-query calls, K3 at both of
+its shapes, K4 and K5 at both of theirs, greedy_assign at its slice and
+root split).  ``--out FILE`` also writes the full record there as JSON.
+Exits non-zero without a CUDA card or outside a checkout.
 """
 from __future__ import annotations
 
@@ -1594,13 +1627,17 @@ def attention_check(torch, np, model, params, tokens) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1.0))
 
 
-def chained_decode_rel(torch, model, params, tokens, patches=None) -> float:
+def chained_decode_rel(torch, model, params, tokens, patches=None,
+                       frames=None) -> float:
     """Prefill of all S + 1 ``tokens`` against prefill of the first S then
     one decode, on ``model`` and its compute ``params``: the largest
     difference of the last logits over their largest value.  With
-    ``patches`` (a VLM's) both prefills put them in front of the tokens.
-    Raises if either is not finite."""
+    ``patches`` (a VLM's) both prefills put them in front of the tokens;
+    with ``frames`` (the enc-dec's) both encode them.  Raises if either is
+    not finite."""
     extra = {} if patches is None else {"patches": patches}
+    if frames is not None:
+        extra["frames"] = frames
     P = 0 if patches is None else patches.shape[1]
     S = tokens.shape[1] - 1
     t = torch.full((tokens.shape[0],), P + S, dtype=torch.int32,
@@ -2229,6 +2266,504 @@ def recurrent_rag_phase(torch, np, idx, eval_q, dev, n_req: int = 8,
     return out
 
 
+# H100 SXM data sheet: dense bf16 tensor-core rate, the mfu denominator
+PEAK_BF16_PER_S = 989e12
+TRAIN_ARCH = "seamless-m4t-medium"
+ENCDEC_ATTN = ("enc/wq", "enc/wk", "dec/wq", "dec/wk", "dec/xwq", "dec/xwk")
+BACKWARD_ARCHS = ("gemma-2b", "qwen2-moe-a2.7b", "internvl2-26b",
+                  "zamba2-1.2b", "rwkv6-1.6b", "seamless-m4t-medium")
+
+
+def encdec_generate(torch, model, params, frames, prompt, new: int):
+    """Greedy generation of ``new`` tokens after ``prompt`` given
+    ``frames`` (all on the card).  Returns (tokens (B, new) numpy, every
+    logit finite, prefill seconds, decode seconds a step)."""
+    B, S = prompt.shape
+    dev = prompt.device
+    toks = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"frames": frames,
+                                               "tokens": prompt},
+                                      capacity=S + new)
+        finite = torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(new):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(tok)
+            t = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            logits, cache = model.decode(params, tok[:, None], cache, t)
+            finite = finite & torch.isfinite(logits).all()
+        out = torch.stack(toks, 1).cpu().numpy()
+        t2 = time.perf_counter()
+    return out, bool(finite), t1 - t0, (t2 - t1) / new
+
+
+def encdec_checks(torch, np, dev, cfg, batch: int = 4, frames_len: int = 512,
+                  prompt_len: int = 128, new: int = 32) -> dict:
+    """Check (a) of phase 14: ``cfg`` (seamless-m4t-medium at full width
+    and depth) with weights drawn on the card (seed 0, float32, and their
+    bf16 copy): two greedy generations of ``new`` tokens after a
+    ``prompt_len``-token prompt and ``frames_len`` frames a row equal, every
+    logit finite; prefill(S+1) against prefill(S) + one decode in float32
+    and float64 (reported) and in float64 with every attention's wq / wk
+    scaled to std 1/sqrt(d) (1e-6 relative); one decode step profiled and
+    set beside its byte bound (the decoder's and ``lm_head``'s bf16
+    weights, the cross K / V and the self-attention cache, read once)."""
+    from repro_torch.models.common import count_params
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    model = build_model(cfg)
+    n_params = count_params(model.param_table())
+    out = {"arch": cfg.name, "params": n_params,
+           "encoder_layers": cfg.encoder_layers, "layers": cfg.num_layers}
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    cp = model.compute_params(params)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.standard_normal(
+        (batch, frames_len, cfg.d_model)).astype(np.float32), device=dev)
+    prompt = torch.as_tensor(rng.integers(
+        2, cfg.vocab_size, (batch, prompt_len), dtype=np.int32), device=dev)
+    g1, fin1, pre_s, dec_s = encdec_generate(torch, model, cp, frames,
+                                             prompt, new)
+    g2, fin2, pre_s2, dec_s2 = encdec_generate(torch, model, cp, frames,
+                                               prompt, new)
+    require(fin1 and fin2, f"{cfg.name}: logits are not finite")
+    require(np.array_equal(g1, g2),
+            f"{cfg.name}: two greedy generations of one batch differ")
+    out["generation"] = {"batch": batch, "frames": frames_len,
+                         "prompt": prompt_len, "new": new,
+                         "prefill_s": [pre_s, pre_s2],
+                         "decode_ms": [dec_s * 1e3, dec_s2 * 1e3],
+                         "tokens_first_row": g1[0, :8].tolist()}
+    toks = torch.cat([prompt[:2], torch.as_tensor(g1[:2, :1], device=dev)], 1)
+    # the drawn init makes every attention almost one-hot, which multiplies
+    # rounding with depth even in float64; scaled, it does not, and that
+    # comparison is gated
+    scaled = attention_scale(cfg)
+    checks = {}
+    for key, dt, f in (("32", torch.float32, 1.0), ("64", torch.float64, 1.0),
+                       ("64_attn_scaled", torch.float64, scaled)):
+        m = build_model(cfg.with_(compute_dtype=str(dt).split(".")[-1]))
+        p = m.compute_params({n: w.to(dt) * f if n in ENCDEC_ATTN else w.to(dt)
+                              for n, w in params.items()})
+        checks[f"prefill_decode_rel_err_{key}"] = chained_decode_rel(
+            torch, m, p, toks, frames=frames[:2].to(dt))
+        del m, p
+        torch.cuda.empty_cache()
+    err = checks["prefill_decode_rel_err_64_attn_scaled"]
+    require(err <= 1e-6,
+            f"{cfg.name}: float64 prefill(S+1) and prefill(S)+decode differ "
+            f"by {err:.3g} relative > 1e-6 (attention weights scaled)")
+    out["checks"] = checks
+    # one decode step profiled, beside its byte bound
+    with torch.no_grad():
+        _, cache = model.prefill(cp, {"frames": frames, "tokens": prompt},
+                                 capacity=prompt_len + new)
+        tok = torch.as_tensor(g1[:, :1], device=dev)
+        t = torch.full((batch,), prompt_len, dtype=torch.int32, device=dev)
+
+        def step():
+            model.decode(cp, tok, cache, t)
+
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = profile_call(torch, step, wall)
+        nb = {k: v.numel() * v.element_size() for k, v in cache.items()}
+    weights = sum(w.numel() * w.element_size() for n, w in cp.items()
+                  if n.startswith("dec/") or n in ("lm_head", "final_norm"))
+    moved = weights + nb["xk"] + nb["xv"] + nb["enc_pos"] + nb["k"] + nb["v"] \
+        + nb["pos"]
+    out["decode_step"] = {
+        "ms": dec_s2 * 1e3, "bound_ms": moved / PEAK_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "bytes": moved, "weight_bytes": weights,
+        "cross_kv_bytes": nb["xk"] + nb["xv"],
+        "self_cache_bytes": nb["k"] + nb["v"] + nb["pos"],
+        "profiled_step": prof}
+    del cache, params, cp
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def attention_scale(cfg) -> float:
+    """The factor that takes an attention's drawn wq / wk from std
+    1/sqrt(H) to 1/sqrt(d), as the CPU parity tests scale them."""
+    return (cfg.num_heads / cfg.d_model) ** 0.5
+
+
+def attention_scaled_init(torch, cfg, seed: int = 0):
+    """``init_state(model, optim, device)`` for ``launch.train.main``: the
+    seed's draw with every enc-dec attention's wq / wk times
+    ``attention_scale(cfg)``."""
+    from repro_torch.train.loop import make_train_state
+
+    f = attention_scale(cfg)
+
+    def init_state(model, optim, device):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        state = make_train_state(model, optim, gen, device=device)
+        for n in ENCDEC_ATTN:
+            state["params"][n].mul_(f)
+        return state
+
+    return init_state
+
+
+def train_entry(torch, np, argv, init_state=None) -> dict:
+    """Check (b) of phase 14: ``repro_torch.launch.train.main(argv,
+    init_state=)`` on the card.  Every loss and grad norm finite; the
+    median step after the first, tokens/s, peak memory and mfu
+    (``model_flops_per_step`` over the step time, over the bf16 peak);
+    then one more step of the trained state under the profiler."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import build_model, model_flops_per_step
+    from repro_torch.train.loop import make_train_step
+
+    args = launch_train.parse_args(argv)
+    cfg = (get_reduced if args.reduced else get_config)(args.arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = launch_train.main(argv, init_state=init_state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    state = rec.pop("state")
+    losses, gnorms = rec["losses"], rec["grad_norms"]
+    require(all(np.isfinite(v) for v in losses + gnorms),
+            f"train: a loss or grad norm is not finite ({losses}, {gnorms})")
+    med = statistics.median(rec["step_seconds"][1:])
+    B, S = rec["batch"], rec["seq"]
+    flops = model_flops_per_step(cfg, ShapeSpec("train", "train", S, B))
+    rec.update({"seconds": seconds, "median_step_s": med,
+                "tokens_per_s": B * S / med,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "model_flops_per_step": flops,
+                "flops_bound_s": flops / PEAK_BF16_PER_S,
+                "mfu": flops / med / PEAK_BF16_PER_S})
+    # one more step of the same run, profiled
+    step = make_train_step(build_model(cfg), launch_train.optimizer_for(args),
+                           num_microbatches=args.micro)
+    batch = launch_train.batch_fn_for(
+        cfg, TokenPipeline(DataConfig(cfg.vocab_size, S, B, seed=args.seed)),
+        B, S)(args.steps)
+    box = [state]
+
+    def one():
+        box[0], m = step(box[0], batch)
+        float(m["loss"])
+
+    rec["profiled_step"] = profile_call(torch, one, med)
+    del state, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _leafwise_rel(torch, got: dict, want: dict) -> dict:
+    """‖got − want‖ / ‖want‖ of each leaf, in float64."""
+    out = {}
+    for n, w in want.items():
+        w64 = w.to(torch.float64)
+        g64 = got[n].to(w64.device, torch.float64)
+        den = float(torch.linalg.vector_norm(w64))
+        out[n] = float(torch.linalg.vector_norm(g64 - w64)) / max(den, 1e-300)
+    return out
+
+
+def step_semantics(torch, dev, cfg, batch: int = 8, seq: int = 512,
+                   lr: float = 0.1) -> dict:
+    """Check (c) of phase 14, at ``cfg``'s full width in float32 compute on
+    one batch of ``batch`` × ``seq``: one ``sgd`` step with 1 microbatch
+    against one with 2, at the drawn init (the losses and the gradient
+    norm, reported) and then with every attention's wq / wk scaled to std
+    1/sqrt(d): ``repro``'s ``test_microbatch_equivalence`` tolerances (the
+    loss within rtol 1e-4, the parameters within rtol 2e-3 / atol 2e-5)
+    and every gradient leaf within 1e-4 relative; then 2 microbatches with
+    ``remat`` on against off (every gradient leaf within 1e-6 relative)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import batch_fn_for
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import global_norm, sgd
+
+    t_phase = time.perf_counter()
+    cfg = cfg.with_(compute_dtype="float32")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    scale = attention_scale(cfg)
+    data = batch_fn_for(cfg, TokenPipeline(DataConfig(cfg.vocab_size, seq,
+                                                      batch)), batch, seq)(0)
+    opt = sgd(lr=lr)
+
+    def run(micro: int, remat: bool):
+        seen = {}
+
+        def keep(grads):
+            seen.update(grads)
+            return grads
+
+        step = make_train_step(build_model(cfg.with_(remat=remat)), opt,
+                               num_microbatches=micro, grad_transform=keep)
+        st, m = step({"params": params, "opt": opt.init(params)}, data)
+        return st["params"], seen, float(m["loss"])
+
+    out = {"batch": batch, "seq": seq, "compute_dtype": "float32",
+           "optimizer": f"sgd(lr={lr})"}
+    # at the drawn init (reported): near one-hot attention turns the
+    # microbatches' other rounding into other attention picks
+    _, g, l1 = run(1, True)
+    out["drawn_init"] = {"grad_norm": float(global_norm(g))}
+    del g
+    _, _, l2 = run(2, True)
+    out["drawn_init"].update(loss_micro1=l1, loss_micro2=l2,
+                             loss_rel=abs(l1 - l2) / abs(l1))
+    for n in ENCDEC_ATTN:  # the checks below: attentions scaled
+        params[n].mul_(scale)
+    torch.cuda.empty_cache()
+    p1, g1, l1 = run(1, True)
+    p2, g2, l2 = run(2, True)
+    out["loss"] = {"micro1": l1, "micro2": l2,
+                   "rel": abs(l1 - l2) / abs(l1),
+                   "grad_norm": float(global_norm(g1))}
+    require(out["loss"]["rel"] <= 1e-4,
+            f"train: loss with 2 microbatches off by {out['loss']['rel']:.3g} "
+            "relative > 1e-4")
+    excess = max(float(((p1[n] - p2[n]).abs()
+                         - (2e-5 + 2e-3 * p2[n].abs())).max()) for n in p1)
+    gm = _leafwise_rel(torch, g2, g1)
+    out["params_max_excess_over_tol"] = excess
+    out["grad_rel_micro"] = max(gm.values())
+    require(excess <= 0.0, "train: parameters after a step with 2 "
+            "microbatches outside rtol 2e-3 / atol 2e-5 of 1")
+    require(out["grad_rel_micro"] <= 1e-4,
+            f"train: a gradient leaf with 2 microbatches off by "
+            f"{out['grad_rel_micro']:.3g} relative > 1e-4")
+    del p1, g1
+    torch.cuda.empty_cache()
+    _, g3, l3 = run(2, False)
+    gr = _leafwise_rel(torch, g3, g2)
+    out["grad_rel_remat"] = max(gr.values())
+    out["worst_remat_leaf"] = max(gr, key=gr.get)
+    out["loss_no_remat"] = l3
+    require(out["grad_rel_remat"] <= 1e-6,
+            f"train: remat off against on, gradient leaf "
+            f"{out['worst_remat_leaf']} off by {out['grad_rel_remat']:.3g} "
+            "relative > 1e-6")
+    del p2, g2, g3, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def family_backward(torch, dev, archs=BACKWARD_ARCHS, seq: int = 32,
+                    batch: int = 2) -> dict:
+    """Check (d) of phase 14: each family's reduced config in float64, the
+    gradients of one train step (``make_train_step``, remat on) on the card
+    against the same step on the CPU, every leaf within 1e-10 relative."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.model import build_model, make_inputs
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import sgd
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in archs:
+        cfg = get_reduced(arch).with_(param_dtype="float64",
+                                      compute_dtype="float64")
+        require(cfg.moe is None or cfg.moe.impl == "dense",
+                f"{arch}: not the dense dispatch")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        data = make_inputs(cfg, ShapeSpec("t", "train", seq, batch), seed=0,
+                           device="cpu")
+        grads, losses = [], []
+        for d in ("cpu", dev):
+            seen = {}
+
+            def keep(g, seen=seen):
+                seen.update(g)
+                return g
+
+            step = make_train_step(model, sgd(lr=0.0), grad_transform=keep)
+            ps = {n: p.to(d) for n, p in params.items()}
+            _, m = step({"params": ps, "opt": sgd().init(ps)}, data)
+            grads.append(seen)
+            losses.append(float(m["loss"]))
+        rel = _leafwise_rel(torch, grads[1], grads[0])
+        worst = max(rel, key=rel.get)
+        out[arch] = {"leaves": len(rel), "worst_leaf": worst,
+                     "worst_rel": rel[worst], "loss_cpu": losses[0],
+                     "loss_cuda": losses[1]}
+        require(rel[worst] <= 1e-10,
+                f"{arch}: float64 gradient {worst} on the card off the CPU's "
+                f"by {rel[worst]:.3g} relative > 1e-10")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def resume_run(torch, path, fail_at, dev, steps: int = 8):
+    """The reduced seamless-m4t-medium trained ``steps`` steps (batch 2 of
+    32 frames and tokens, 2 microbatches, ``adamw`` on its warmup-cosine
+    schedule, remat on) by a ``FaultTolerantRunner`` that checkpoints
+    every 2 steps, with ``fail_at``'s failures injected.  Returns (state,
+    restarts)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed.fault import FaultTolerantRunner, RunnerConfig
+    from repro_torch.launch.train import batch_fn_for
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import (make_train_state, make_train_step,
+                                        train_state_structure)
+    from repro_torch.train.optim import adamw
+
+    cfg = get_reduced(TRAIN_ARCH)
+    model = build_model(cfg)
+    optim = adamw(lr=3e-3, warmup=2, total_steps=steps)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, seed=1))
+
+    def init_state():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return make_train_state(model, optim, gen, device=dev)
+
+    runner = FaultTolerantRunner(
+        RunnerConfig(str(path), ckpt_every=2),
+        make_train_step(model, optim, num_microbatches=2),
+        batch_fn_for(cfg, pipe, 2, 32), init_state, device=dev,
+        structure=train_state_structure(model, optim))
+    state, step = runner.run(steps, fail_at=fail_at)
+    require(step == steps, f"resume: the runner stopped at step {step}")
+    return state, runner.restarts
+
+
+def _state_leaves(state, pre=""):
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(_state_leaves(v, f"{pre}{k}/"))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def fault_resume_child(src: str, work: str, dev: str = "cuda") -> dict:
+    """Check (e) of phase 14, in a process of its own: cuBLAS's
+    deterministic workspace is set before CUDA starts there, and
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` records
+    any op of the step that has no deterministic CUDA implementation.  An
+    uninterrupted run against one with failures injected at steps 3 and 5
+    (``resume_run``): 2 restarts, and every leaf of the final state the
+    same bits; where some op was recorded as nondeterministic, the
+    resumed run no further from the uninterrupted one than a second
+    uninterrupted run is."""
+    import os
+    import warnings
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    sys.path.insert(0, src)
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        clean, r0 = resume_run(torch, Path(work) / "clean", None, dev)
+        resumed, r2 = resume_run(torch, Path(work) / "resumed",
+                                 {3: 1, 5: 1}, dev)
+    ops = sorted({str(w.message).split("\n")[0] for w in caught
+                  if "deterministic" in str(w.message)})
+    a, b = _state_leaves(clean), _state_leaves(resumed)
+    diff = max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+    out = {"restarts": [r0, r2], "leaves": len(a),
+           "bit_equal": all(torch.equal(a[k], b[k]) for k in a),
+           "max_abs_diff": diff, "nondeterministic_ops": ops}
+    if ops:
+        again, _ = resume_run(torch, Path(work) / "again", None, dev)
+        c = _state_leaves(again)
+        out["clean_vs_clean_max_abs_diff"] = max(
+            float((a[k].double() - c[k].double()).abs().max()) for k in a)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def fault_resume(torch, dev="cuda") -> dict:
+    """Runs ``fault_resume_child`` in a spawned process (checkpoints under
+    build/, removed after) and applies its checks."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase14-", dir=ROOT / "build"))
+    try:
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            out = pool.apply(fault_resume_child,
+                             (str(ROOT / "src"), str(work), str(dev)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(out["restarts"] == [0, 2],
+            f"resume: restarts {out['restarts']}, not [0, 2]")
+    if out["nondeterministic_ops"]:
+        require(out["max_abs_diff"] <= out["clean_vs_clean_max_abs_diff"],
+                "resume: the resumed run is further from the uninterrupted "
+                "one than two uninterrupted runs are from each other")
+    else:
+        require(out["bit_equal"], "resume: the resumed run's state differs "
+                f"from the uninterrupted one's (max {out['max_abs_diff']:.3g})")
+    return out
+
+
+def train_phase(torch, np, dev, train_argv=None, cfg=None,
+                backward_archs=BACKWARD_ARCHS) -> dict:
+    """Phase 14: the enc-dec family and the training path on the card,
+    (a) ``encdec_checks``, (b) ``train_entry``, (c) ``step_semantics``,
+    (d) ``family_backward``, (e) ``fault_resume``; each frees its models
+    before the next.  No kernel of the port is on this path."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    if cfg is None:
+        cfg = get_config(TRAIN_ARCH)
+    if train_argv is None:
+        train_argv = ["--arch", TRAIN_ARCH, "--steps", "12", "--batch", "8",
+                      "--seq", "512", "--micro", "2"]
+    out = {}
+    out["encdec"] = encdec_checks(torch, np, dev, cfg)
+    log("phase 14 (a) enc-dec: " + json.dumps(out["encdec"]))
+    # (b) at the drawn init, whose gradients explode with depth (reported),
+    # then with the attentions scaled: there the loss must fall
+    out["train_drawn_init"] = train_entry(torch, np, train_argv)
+    log("phase 14 (b) train, drawn init: "
+        + json.dumps(out["train_drawn_init"]))
+    out["train"] = train_entry(torch, np, train_argv,
+                               attention_scaled_init(torch, cfg))
+    log("phase 14 (b) train, attentions scaled: " + json.dumps(out["train"]))
+    losses = out["train"]["losses"]
+    require(losses[-1] < losses[0],
+            f"train: the last loss {losses[-1]:.4f} is not below the first "
+            f"{losses[0]:.4f}")
+    out["step_semantics"] = step_semantics(torch, dev, cfg)
+    log("phase 14 (c) step semantics: " + json.dumps(out["step_semantics"]))
+    out["backward"] = family_backward(torch, dev, backward_archs)
+    log("phase 14 (d) backward on the card: " + json.dumps(out["backward"]))
+    out["resume"] = fault_resume(torch, dev)
+    log("phase 14 (e) resume: " + json.dumps(out["resume"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 CSRC = "src/repro_torch/csrc/"
 SOURCES = {"gather_rows_dist": CSRC + "gather_dist.cu",
            "gather_rows_dist_q8": CSRC + "gather_dist.cu",
@@ -2619,6 +3154,18 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t0:.1f} s): "
             + json.dumps(abl["bfs"]["projection_full_size"]))
 
+    # 14. the enc-dec family and the training path at full width, after
+    # phase 13's models are freed; its own counts, which no kernel needs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"memory before phase 14: {torch.cuda.memory_allocated()} bytes")
+    K.reset_launch_counts()
+    train = train_phase(torch, np, dev)
+    train_launches = K.launch_counts()
+    log("launches on the training path (none required): "
+        + json.dumps(train_launches))
+    log(f"phase 14: {train['seconds']:.1f} s")
+
     line = kernels_line(kres, api, hop, launches, serve_launches,
                         fb_launches, single, greedy, abl_launches,
                         rag_launches, moe_rag_launches, rec_rag_launches)
@@ -2641,6 +3188,7 @@ def main(argv=None) -> int:
         "greedy_assign": greedy, "rag": rag, "rag_launches": rag_launches,
         "moe_rag": moe_rag, "moe_rag_launches": moe_rag_launches,
         "recurrent_rag": rec_rag, "recurrent_rag_launches": rec_rag_launches,
+        "train": train, "train_launches": train_launches,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

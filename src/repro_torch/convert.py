@@ -1,12 +1,14 @@
-"""Carry ``repro`` state across: ``index_from_numpy``, ``lm_params_from_numpy``.
+"""Carry ``repro`` state across: ``index_from_numpy``,
+``lm_params_from_numpy``, ``train_state_from_numpy``.
 
 ``repro``'s ``GateIndex.save`` pickles one dictionary; ``index_from_numpy``
 takes exactly that dictionary, with its dataclasses (``tower_cfg``,
 ``gcfg``) given as plain dicts and every array as a numpy array, and
 returns a port ``GateIndex`` whose ``search`` computes what ``repro``'s
 does.  ``lm_params_from_numpy`` does the same for a language model's
-parameter dict.  This module imports nothing of ``repro``: the caller
-reads the pickle (or the live objects).
+parameter dict, and ``train_state_from_numpy`` for a whole train state
+(a restored ``repro`` checkpoint, say).  This module imports nothing of
+``repro``: the caller reads the pickle (or the live objects).
 """
 from __future__ import annotations
 
@@ -77,3 +79,30 @@ def lm_params_from_numpy(cfg: ModelConfig, params: Mapping,
         out[name] = torch.as_tensor(a, device=device).to(
             torch_dtype(spec.dtype or cfg.param_dtype))
     return out
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: Mapping,
+                           device="cuda") -> dict:
+    """``repro``'s train state (``{"params", "opt": {"m", "v", "step"}}``,
+    arrays; an ``sgd`` state has no ``v``) as the port's on ``device``:
+    the parameters through ``lm_params_from_numpy``, ``m`` / ``v`` float32
+    under the same names and shapes, ``step`` an int32 scalar."""
+    params = lm_params_from_numpy(cfg, state["params"], device=device)
+    opt = {}
+    for key, val in state["opt"].items():
+        if key == "step":
+            opt[key] = torch.as_tensor(np.array(val, np.int32).reshape(()),
+                                       device=device)
+            continue
+        if set(val) != set(params):
+            raise ValueError(f"train_state_from_numpy: opt/{key} names "
+                             "differ from the parameters'")
+        opt[key] = {}
+        for n, a in val.items():
+            a = np.array(a, np.float32)
+            if a.shape != tuple(params[n].shape):
+                raise ValueError(f"train_state_from_numpy: opt/{key}/{n} has "
+                                 f"shape {a.shape}, the parameter "
+                                 f"{tuple(params[n].shape)}")
+            opt[key][n] = torch.as_tensor(a, device=device)
+    return {"params": params, "opt": opt}

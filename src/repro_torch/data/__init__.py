@@ -1,1 +1,2 @@
-"""Synthetic data (numpy copy of ``repro.data.synthetic``)."""
+"""Synthetic data and the token pipeline (numpy copies of
+``repro.data.synthetic`` and ``repro.data.pipeline``)."""

@@ -1,1 +1,2 @@
-"""Command-line entry points (counterpart of ``repro.launch``): ``serve``."""
+"""Command-line entry points (counterpart of ``repro.launch``): ``serve``
+and ``train``."""

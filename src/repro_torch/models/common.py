@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -128,6 +129,15 @@ class FlatParamsLM(nn.Module):
         return out
 
 
+def remat(cfg, fn, *args):
+    """``fn(*args)``; with ``cfg.remat`` set and autograd recording, its
+    activations are recomputed in the backward pass instead of kept
+    (``repro`` wraps the same layer bodies in ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
@@ -148,9 +158,10 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * (1.0 + w.to(at))).to(dt)
 
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device=None,
+               dtype=torch.float32) -> torch.Tensor:
     return 1.0 / (
-        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+        theta ** (torch.arange(0, head_dim, 2, dtype=dtype,
                                device=device) / head_dim)
     )
 
@@ -159,8 +170,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int32."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)  # (D/2,)
     at = acc_dtype(x.dtype)
+    freqs = rope_freqs(d, theta, device=x.device, dtype=at)  # (D/2,)
     ang = positions[..., None].to(at) * freqs  # (B, S, D/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -321,13 +332,15 @@ def cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Mean next-token CE in fp32; logits (B,S,V), labels (B,S)."""
-    lf = logits.to(torch.float32)
+    """Mean next-token CE in fp32 (float64 for a float64 model); logits
+    (B,S,V), labels (B,S)."""
+    at = acc_dtype(logits.dtype)
+    lf = logits.to(at)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
     if mask is not None:
-        mask = mask.to(torch.float32)
+        mask = mask.to(at)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
 

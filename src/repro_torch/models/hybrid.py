@@ -30,6 +30,7 @@ from repro_torch.models.common import (
     decode_attention,
     glu_mlp,
     next_token_ce,
+    remat,
     rms_norm,
     torch_dtype,
 )
@@ -40,6 +41,11 @@ from repro_torch.models.ssm import (
     mamba_param_table,
 )
 from repro_torch.models.transformer import TensorSpec
+
+
+def _mamba_residual(p_l, x, cfg):
+    return x + mamba_block_full(p_l, x, cfg)[0]
+
 
 class HybridLM(FlatParamsLM):
     """Over a flat parameter dict (``FlatParamsLM``); read in float32: the
@@ -138,19 +144,23 @@ class HybridLM(FlatParamsLM):
         k_conv = cfg.conv_kernel
         for i in range(cfg.num_layers):
             p_l = self._layer(params, i)
-            if want_caches:
-                # conv state = the trailing k-1 conv INPUTS of this layer
-                tail = x[:, -(k_conv - 1):]
-                h_t = rms_norm(tail, p_l["m_norm"], cfg.norm_eps)
-                conv_states.append(h_t @ p_l["wx"].to(tail.dtype))
+            shared = (i + 1) % cfg.attn_every == 0
+            if not want_caches:  # the loss path: remat each block, as repro
+                x = remat(cfg, _mamba_residual, p_l, x, cfg)
+                if shared:
+                    x = remat(cfg, lambda x: self._shared_full(params, x,
+                                                               pos)[0], x)
+                continue
+            # conv state = the trailing k-1 conv INPUTS of this layer
+            tail = x[:, -(k_conv - 1):]
+            h_t = rms_norm(tail, p_l["m_norm"], cfg.norm_eps)
+            conv_states.append(h_t @ p_l["wx"].to(tail.dtype))
             out, h_fin = mamba_block_full(p_l, x, cfg)
             x = x + out
-            if want_caches:
-                ssm_states.append(h_fin)
-            if (i + 1) % cfg.attn_every == 0:
+            ssm_states.append(h_fin)
+            if shared:
                 x, kv = self._shared_full(params, x, pos)
-                if want_caches:
-                    kvs.append(kv)
+                kvs.append(kv)
         caches = None
         if want_caches:
             caches = (torch.stack([k for k, _ in kvs]),

@@ -1,15 +1,14 @@
 """Model factory, input specs and analytic counts (counterpart of
 ``repro.models.model``).
 
-The port builds the dense, MoE and VLM families (``DecoderLM``), the
-hybrid (``HybridLM``) and RWKV (``RWKVLM``); the enc-dec audio family
-raises and names the ROADMAP item that ports it.  ``make_inputs`` draws
-the same batches as ``repro``'s from the same seed; ``make_cache`` is a
-zero cache with ``filled`` valid positions (a state with no ``pos``, as
-RWKV's, is all zeros).  ``active_param_count`` and
-``model_flops_per_step`` are ``repro``'s formulas, pure Python, over
-every family's parameter table (``param_table``; the audio family's is in
-``models.tables``).
+The port builds every family of ``repro``: the dense, MoE and VLM
+decoders (``DecoderLM``), the hybrid (``HybridLM``), RWKV (``RWKVLM``)
+and the enc-dec audio model (``EncDecLM``).  ``make_inputs`` draws the
+same batches as ``repro``'s from the same seed; ``make_cache`` is a zero
+cache with ``filled`` valid positions (a state with no ``pos``, as
+RWKV's, is all zeros; the enc-dec's ``enc_pos`` counts up).
+``active_param_count`` and ``model_flops_per_step`` are ``repro``'s
+formulas, pure Python, over every family's parameter table.
 """
 from __future__ import annotations
 
@@ -19,37 +18,23 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models.common import ParamSpec, torch_dtype
+from repro_torch.models.common import torch_dtype
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.rwkv import RWKVLM
-from repro_torch.models.tables import encdec_param_table
 from repro_torch.models.transformer import FAMILIES, DecoderLM, TensorSpec
-
-# family -> where ROADMAP A6 ports it
-_NOT_PORTED = {
-    "audio": "ROADMAP A6: the enc-dec audio model comes next",
-}
 
 
 def build_model(cfg: ModelConfig):
     if cfg.family in FAMILIES:
         return DecoderLM(cfg)
+    if cfg.family == "audio":
+        return EncDecLM(cfg)
     if cfg.family == "hybrid":
         return HybridLM(cfg)
     if cfg.family == "ssm":
         return RWKVLM(cfg)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"build_model: family {cfg.family!r} ({cfg.name}) is not ported "
-            f"yet ({_NOT_PORTED[cfg.family]})")
     raise ValueError(cfg.family)
-
-
-def param_table(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    """The parameter table of ``cfg``'s model, of every family."""
-    if cfg.family == "audio":
-        return encdec_param_table(cfg)
-    return build_model(cfg).param_table()
 
 
 def _i32(*shape) -> TensorSpec:
@@ -57,18 +42,24 @@ def _i32(*shape) -> TensorSpec:
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
-    """Specs of the *batch* argument (tokens / labels, and the VLM's
+    """Specs of the *batch* argument: tokens / labels; the VLM's
     precomputed patch embeddings in the compute dtype, which take the
-    first ``num_patches`` of the cell's ``seq_len`` positions)."""
+    first ``num_patches`` of the cell's ``seq_len`` positions; the audio
+    family's frame embeddings (B, S, d_model) in the compute dtype, with a
+    decoder prompt of ``min(S, 128)`` tokens at prefill."""
     build_model(cfg)
     B, S = shape.global_batch, shape.seq_len
+    dt = torch_dtype(cfg.compute_dtype)
     out: Dict[str, TensorSpec] = {}
     if shape.kind in ("train", "prefill"):
         if cfg.family == "vlm":
             P = cfg.num_patches
-            out["patches"] = TensorSpec((B, P, cfg.patch_dim),
-                                        torch_dtype(cfg.compute_dtype))
+            out["patches"] = TensorSpec((B, P, cfg.patch_dim), dt)
             S -= P
+        elif cfg.family == "audio":
+            out["frames"] = TensorSpec((B, S, cfg.d_model), dt)
+            if shape.kind == "prefill":
+                S = min(S, 128)  # the decoder prompt
         out["tokens"] = _i32(B, S)
         if shape.kind == "train":
             out["labels"] = _i32(B, S)
@@ -111,6 +102,10 @@ def make_cache(cfg: ModelConfig, batch: int, seq_len: int, filled: int = 0,
             pos = np.full(s.shape, -1, np.int32)
             pos[:, :filled] = np.arange(filled)[None, :]
             cache[k] = torch.as_tensor(pos, device=device)
+        elif k == "enc_pos":
+            cache[k] = torch.as_tensor(np.broadcast_to(
+                np.arange(s.shape[1], dtype=np.int32), s.shape).copy(),
+                device=device)
         else:
             cache[k] = torch.zeros(s.shape, dtype=s.dtype, device=device)
     return cache
@@ -158,7 +153,7 @@ def _attn_layer_count(cfg: ModelConfig) -> int:
 
 def active_param_count(cfg: ModelConfig) -> int:
     """Params touched per token (MoE counts top-k + shared experts only)."""
-    table = param_table(cfg)
+    table = build_model(cfg).param_table()
     total = 0
     for name, spec in table.items():
         n = int(np.prod(spec.shape))

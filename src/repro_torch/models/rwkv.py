@@ -30,6 +30,7 @@ from repro_torch.models.common import (
     _pad_seq,
     acc_dtype,
     next_token_ce,
+    remat,
     rms_norm,
     torch_dtype,
 )
@@ -252,16 +253,23 @@ class RWKVLM(FlatParamsLM):
         h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
         return x + self._channel_mix(p, h, _shift(h)), h[:, -1]
 
+    def _layer_loss(self, p, x):
+        """One layer's time and channel mix, without the states."""
+        x = self._time_mix_full(p, x)[0]
+        return self._channel_mix_full(p, x)[0]
+
     # ------------------------------------------------------------------ modes
     def _forward_full(self, params, tokens, want_state: bool):
         x = self._embed(params, tokens)
         states = []
         for i in range(self.cfg.num_layers):
             p_l = self._layer(params, i)
+            if not want_state:  # the loss path: remat, as ``repro``
+                x = remat(self.cfg, self._layer_loss, p_l, x)
+                continue
             x, S_fin, sh_t = self._time_mix_full(p_l, x)
             x, sh_c = self._channel_mix_full(p_l, x)
-            if want_state:
-                states.append((S_fin, sh_t, sh_c))
+            states.append((S_fin, sh_t, sh_c))
         if not want_state:
             return x, None
         return x, tuple(torch.stack(s) for s in zip(*states))

@@ -41,6 +41,7 @@ from repro_torch.models.common import (
     decode_attention,
     glu_mlp,
     next_token_ce,
+    remat,
     rms_norm,
     scalar_in,
     torch_dtype,
@@ -173,6 +174,11 @@ class DecoderLM(FlatParamsLM):
         mlp_out, aux = self._mlp(p, h2)
         return x + mlp_out, (k, v), aux
 
+    def _layer_loss(self, p, x, pos):
+        """``_layer_full`` without the K / V: (x, aux)."""
+        x, _, aux = self._layer_full(p, x, pos)
+        return x, aux
+
     def _layer_decode(self, p, x, cache_k, cache_v, cache_pos, t):
         """Single-token layer. x: (B,1,D). Returns (x, new_k, new_v, pos)."""
         cfg = self.cfg
@@ -234,7 +240,11 @@ class DecoderLM(FlatParamsLM):
         ks, vs = [], []
         aux = None
         for i in range(self.cfg.num_layers):
-            x, (k, v), aux_l = self._layer_full(self._layer(params, i), x, pos)
+            p_l = self._layer(params, i)
+            if not collect_kv:  # the loss path: remat, as ``repro``
+                x, aux_l = remat(self.cfg, self._layer_loss, p_l, x, pos)
+            else:
+                x, (k, v), aux_l = self._layer_full(p_l, x, pos)
             if aux_l is not None:
                 aux = aux_l if aux is None else aux + aux_l
             if collect_kv:

@@ -1,1 +1,2 @@
-"""Optimizers (counterpart of ``repro.train.optim``)."""
+"""Training (counterpart of ``repro.train``): the optimizers, the train
+step and gradient compression."""

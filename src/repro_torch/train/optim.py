@@ -6,7 +6,8 @@
 
 Their own implementation rather than ``torch.optim``, so one step computes
 what ``repro``'s does (bias corrections and the learning-rate schedule in
-float32 from an int32 step).
+float32 from an int32 step).  The step counter lives with the parameters,
+so a step on the card makes no host-to-device copy.
 """
 from __future__ import annotations
 
@@ -20,8 +21,11 @@ Params = Dict[str, torch.Tensor]
 
 
 def global_norm(tree: Params) -> torch.Tensor:
+    """The leaves' squares summed in sorted name order (``jax.tree``'s
+    leaf order), so the bits do not depend on the dict's order."""
     return torch.sqrt(
-        sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree.values())
+        sum(torch.sum(torch.square(tree[k].to(torch.float32)))
+            for k in sorted(tree))
     )
 
 
@@ -50,7 +54,16 @@ def warmup_cosine(lr: float, warmup: int, total_steps: int,
 
 
 def constant_lr(lr: float):
-    return lambda step: torch.full((), lr, dtype=torch.float32)
+    """``schedule(step)``: ``lr`` as a float32 scalar on the step's
+    device."""
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=torch.as_tensor(step).device)
+
+
+def _step0(params: Params) -> torch.Tensor:
+    """An int32 zero on the parameters' device."""
+    dev = next(iter(params.values())).device if params else None
+    return torch.zeros((), dtype=torch.int32, device=dev)
 
 
 @dataclass(frozen=True)
@@ -79,7 +92,7 @@ def adamw(
         return {
             "m": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
             "v": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
-            "step": torch.zeros((), dtype=torch.int32),
+            "step": _step0(params),
         }
 
     def apply(params: Params, grads: Params, state):
@@ -90,20 +103,19 @@ def adamw(
         step = state["step"] + 1
         stepf = step.to(torch.float32)
         lr_t = sched(step)
-        b1t = 1 - torch.tensor(b1, dtype=torch.float32) ** stepf
-        b2t = 1 - torch.tensor(b2, dtype=torch.float32) ** stepf
+        b1t = 1 - torch.full_like(stepf, b1) ** stepf
+        b2t = 1 - torch.full_like(stepf, b2) ** stepf
         new_p, new_m, new_v = {}, {}, {}
         for k, p in params.items():
-            dev = p.device
             gf = grads[k].to(torch.float32)
             m2 = b1 * state["m"][k] + (1 - b1) * gf
             v2 = b2 * state["v"][k] + (1 - b2) * gf * gf
-            mhat = m2 / b1t.to(dev)
-            vhat = v2 / b2t.to(dev)
+            mhat = m2 / b1t
+            vhat = v2 / b2t
             delta = mhat / (torch.sqrt(vhat) + eps)
             if weight_decay:
                 delta = delta + weight_decay * p.to(torch.float32)
-            new_p[k] = (p.to(torch.float32) - lr_t.to(dev) * delta).to(p.dtype)
+            new_p[k] = (p.to(torch.float32) - lr_t * delta).to(p.dtype)
             new_m[k], new_v[k] = m2, v2
         return new_p, {"m": new_m, "v": new_v, "step": step}, gnorm
 
@@ -114,7 +126,7 @@ def sgd(lr: float = 1e-2, momentum: float = 0.0) -> Optimizer:
     def init(params: Params):
         return {
             "m": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
-            "step": torch.zeros((), dtype=torch.int32),
+            "step": _step0(params),
         }
 
     def apply(params: Params, grads: Params, state):

@@ -110,17 +110,21 @@ def test_public_surface_resolves_without_jax():
     """Every name of ``repro_torch.__all__`` (``repro``'s export table, plus
     ``exact_knn`` and ``recall_at_k``) and of ``repro_torch.core`` /
     ``repro_torch.graphs`` / ``repro_torch.models`` / ``repro_torch.serve``
-    resolves, and the LM configs, models (the MoE, SSM, hybrid and RWKV
-    modules among them) and launcher import, in a fresh interpreter that has loaded neither
+    resolves, and the LM configs, models (the MoE, SSM, hybrid, RWKV and
+    enc-dec modules among them), the training modules and both launchers
+    import, in a fresh interpreter that has loaded neither
     ``jax`` nor ``repro`` afterwards."""
     code = (
         "import sys, repro_torch, repro_torch.core as c, repro_torch.graphs as g\n"
         "import repro_torch.models as mo, repro_torch.serve as sv\n"
         "import repro_torch.configs as cf, repro_torch.launch.serve\n"
         "import repro_torch.core.baselines, repro_torch.train.optim\n"
-        "import repro_torch.models.moe as moe, repro_torch.models.tables\n"
+        "import repro_torch.models.moe as moe, repro_torch.models.encdec as ed\n"
         "import repro_torch.models.ssm as ssm, repro_torch.models.hybrid as hy\n"
-        "import repro_torch.models.rwkv as rw\n"
+        "import repro_torch.models.rwkv as rw, repro_torch.launch.train\n"
+        "import repro_torch.train.loop, repro_torch.train.compress\n"
+        "import repro_torch.data.pipeline, repro_torch.distributed.fault\n"
+        "assert mo.EncDecLM is ed.EncDecLM\n"
         "assert callable(moe.moe_ffn) and callable(moe.moe_param_table)\n"
         "assert callable(ssm.ssd_chunked) and callable(rw.wkv6_chunked)\n"
         "assert mo.HybridLM is hy.HybridLM and mo.RWKVLM is rw.RWKVLM\n"

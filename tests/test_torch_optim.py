@@ -81,3 +81,52 @@ def test_scheduled_adamw_matches(kw):
         for f in ("m", "v"):
             np.testing.assert_allclose(ts[f][k].numpy(), np.asarray(js[f][k]),
                                        rtol=1e-6, atol=1e-6)
+
+
+def _adamw_step_before(params, grads, state, lr, b1=0.9, b2=0.95, eps=1e-8):
+    """One step of the earlier arithmetic, which made ``step`` on the host
+    and copied ``lr_t``, ``b1t`` and ``b2t`` to each leaf's device: the CPU
+    bits the repaired ``adamw`` must keep (constant rate, no clip)."""
+    step = state["step"] + 1
+    stepf = step.to(torch.float32)
+    b1t = 1 - torch.tensor(b1, dtype=torch.float32) ** stepf
+    b2t = 1 - torch.tensor(b2, dtype=torch.float32) ** stepf
+    lr_t = torch.full((), lr, dtype=torch.float32)
+    out = {}
+    for k, p in params.items():
+        gf = grads[k].to(torch.float32)
+        m2 = b1 * state["m"][k] + (1 - b1) * gf
+        v2 = b2 * state["v"][k] + (1 - b2) * gf * gf
+        delta = (m2 / b1t) / (torch.sqrt(v2 / b2t) + eps)
+        out[k] = (p.to(torch.float32) - lr_t * delta).to(p.dtype)
+    return out, {"m": None, "v": None, "step": step}
+
+
+@pytest.mark.parametrize("make", [lambda: topt.adamw(lr=0.01, grad_clip=None),
+                                  lambda: topt.sgd(lr=0.05, momentum=0.9)])
+def test_step_counter_sits_with_the_params(make):
+    """``init`` puts ``step`` on the parameters' device, and a step keeps
+    every output there (shown on the meta device, which refuses nothing a
+    card would copy); on the CPU the bits are the earlier ones."""
+    opt = make()
+    meta = {"w": torch.zeros((3, 2), device="meta"),
+            "b": torch.zeros((2,), device="meta")}
+    state = opt.init(meta)
+    assert state["step"].device.type == "meta"
+    assert state["step"].dtype == torch.int32
+    p2, s2, gn = opt.apply(meta, {k: torch.ones_like(v) for k, v in meta.items()},
+                           state)
+    outs = [*p2.values(), s2["step"], gn, *s2["m"].values()]
+    assert all(t.device.type == "meta" for t in outs)
+    params, grads = _problem(3)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+    st = opt.init(tp)
+    assert st["step"].device.type == "cpu"
+    if "v" not in st:
+        return
+    for g in grads[:5]:
+        tg = {k: torch.from_numpy(v) for k, v in g.items()}
+        want, _ = _adamw_step_before(tp, tg, st, lr=0.01)
+        tp, st, _ = opt.apply(tp, tg, st)
+        for k in tp:
+            assert torch.equal(tp[k], want[k]), k
