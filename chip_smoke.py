@@ -99,7 +99,7 @@ Run from the root of a checkout:
    two layers at full width, float64 prefill(S+1) against prefill(S) +
    decode (1e-6), the dropping dispatch at capacity E/K against the dense
    one (1e-9) and the share dropped at 1.25, float32 layer by layer
-   (1e-3); then 8 requests of 32 queries served as in phase 11, each
+   (1e-3); then 4 requests of 32 queries served as in phase 11, each
    held against a plain search at its rung, and the decode step set
    beside its bounds.
 13. Recurrent RAG phase, after phase 12's model is freed: zamba2-1.2b
@@ -111,7 +111,7 @@ Run from the root of a checkout:
    (S = 576: the chunked scan's padded tail and the state it hands to the
    step; 1e-6 relative), the same in float32 reported, and layer 0's
    chunked scan on its real inputs against a loop of the single-token
-   step (1e-10); then 8 requests of 32 queries served as in phase 11,
+   step (1e-10); then 4 requests of 32 queries served as in phase 11,
    each held against a plain search at its rung, and the decode step set
    beside its byte bound, one step profiled.
 14. Training phase, after phase 13's models are freed (no kernel of the
@@ -139,8 +139,27 @@ Run from the root of a checkout:
    flag, a FaultTolerantRunner over 8 steps of the reduced
    seamless-m4t-medium with failures at steps 3 and 5 ends on the bits of
    an uninterrupted run.
+15. Partitioned search phase, after phase 14's models are freed (no
+   kernel of the port is on this path: the partitioned search reaches no
+   Pallas kernel in the JAX package).  4 ranks in a gloo process group
+   share the card as a (2, 2) ("data", "model") mesh; rank p owns rows
+   [p·N/4, (p+1)·N/4) of phase 4's database with its own knn_graph(R=16)
+   built on the card, and phase 4's tower and hubs;
+   ``repro_torch.core.distributed.make_search_step`` (beam 64, 128 hops,
+   k = 10) searches the Q eval queries, one warm call and three timed.
+   Gates: every rank's merged ids and distances the same and equal to
+   this process's composition of the four shards' searches merged by a
+   stable top-k (bits); distances ascending, ids unique per row and in
+   [0, N); at tests/test_distributed.py's cut (2048 rows, 64 hubs, beam
+   32, 64 hops) the card's ids on at least 99% of the CPU's slots and its
+   distances within 1e-4 of their largest; cross_pod_grad_sync on a (2,
+   2) ("pod", "data") mesh of card tensors 0.5 within 0.02 on every rank;
+   a 2-rank data-parallel sgd step of the reduced gemma-2b in float32
+   within 1e-6 of the 1-rank loss and rtol 2e-3 / atol 2e-5 of its
+   parameters.  Reports recall@10, QPS, the merge's share of a step, each
+   rank's peak allocation and graph build seconds.
 
-Phases 3, 5-6 and 8-14 are each driven with the kernel launch counts set
+Phases 3, 5-6 and 8-15 are each driven with the kernel launch counts set
 to 0 just before and read just after.  Each phase's kernel-launch
 requirement:
    phase 3        K4 (topk_min), K5 (l2dist), K6 (gather_dist)
@@ -150,7 +169,7 @@ requirement:
    phase 9        K1, K2, K3
    phase 10       K1, K3, greedy_assign
    phases 11-13   K1, K3
-   phase 14       none (its counts are logged)
+   phases 14-15   none (their counts are logged)
 Every check that fails raises, so the script exits non-zero and prints no
 result.  The last line is the JSON result object; the line before it is
 the card's name and power limit, and the one before that lists every
@@ -1604,16 +1623,17 @@ def attention_check(torch, np, model, params, tokens) -> float:
     """``blockwise_attention`` against a naive full softmax in fp32, on the
     first layer's q, k, v of ``tokens`` (one request); returns the largest
     absolute error over the largest absolute value."""
+    from repro_torch.distributed.sharding import NULL_CTX
     from repro_torch.models.common import blockwise_attention, rms_norm
 
     cfg = model.cfg
     with torch.no_grad():
-        x = model._embed_tokens(params, tokens)
+        x = model._embed_tokens(params, tokens, NULL_CTX)
         B, S, _ = x.shape
         pos = model._positions(B, S, x.device)
         p0 = model._layer(params, 0)
         q, k, v = model._attn_proj_qkv(
-            p0, rms_norm(x, p0["attn_norm"], cfg.norm_eps), pos)
+            p0, rms_norm(x, p0["attn_norm"], cfg.norm_eps), pos, NULL_CTX)
         got = blockwise_attention(q, k, v, pos, pos, causal=True,
                                   window=cfg.window, chunk=cfg.attn_chunk)
         G = q.shape[2] // k.shape[2]
@@ -1660,8 +1680,10 @@ def layerwise_decode_check(torch, model, params, tokens) -> float:
     forward at position S.  Returns the largest difference of the layer's
     output increment (its attention + MLP update) over that increment's
     largest value, across layers and rows."""
+    from repro_torch.distributed.sharding import NULL_CTX
+
     with torch.no_grad():
-        x = model._embed_tokens(params, tokens)
+        x = model._embed_tokens(params, tokens, NULL_CTX)
         B, S1, _ = x.shape
         S = S1 - 1
         pos = model._positions(B, S1, x.device)
@@ -1669,12 +1691,14 @@ def layerwise_decode_check(torch, model, params, tokens) -> float:
         worst = 0.0
         for i in range(model.cfg.num_layers):
             p_l = model._layer(params, i)
-            y, _, _ = model._layer_full(p_l, x, pos)
-            _, (k, v), _ = model._layer_full(p_l, x[:, :S], pos[:, :S])
+            y, _, _ = model._layer_full(p_l, x, pos, NULL_CTX)
+            _, (k, v), _ = model._layer_full(p_l, x[:, :S], pos[:, :S],
+                                             NULL_CTX)
             cache = model._cache_from_prefill(k[None], v[None], pos[:, :S], S,
                                               capacity=S1)
             y_dec, _, _, _ = model._layer_decode(
-                p_l, x[:, S:], cache["k"][0], cache["v"][0], cache["pos"], t)
+                p_l, x[:, S:], cache["k"][0], cache["v"][0], cache["pos"], t,
+                NULL_CTX)
             want = (y[:, S] - x[:, S]).to(torch.float32)
             got = (y_dec[:, 0] - x[:, S]).to(torch.float32)
             worst = max(worst, float((got - want).abs().max()
@@ -2764,6 +2788,438 @@ def train_phase(torch, np, dev, train_argv=None, cfg=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the partitioned index over ranks
+# ---------------------------------------------------------------------------
+
+PARTITIONS = ((2, 2), ("data", "model"))   # P = 4 ranks on one card
+PART_KNOBS = dict(beam_width=64, max_hops=128, k=10)
+PART_R = 16                                 # local knn_graph degree
+# tests/test_distributed.py's cut, searched on the card and on the CPU
+SMALL_CUT = dict(n=2048, hubs=64, queries=32,
+                 knobs=dict(beam_width=32, max_hops=64, k=10))
+RANK_TIMEOUT_S = 300
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def small_cut(np) -> dict:
+    """The inputs of ``tests/test_distributed.py``'s sharded-search cut,
+    drawn in the port: 2048 sift10m-like rows (seed 0), a tower drawn from
+    a CPU generator (seed 0), 64 hubs (``default_rng(0)``) represented by
+    the query tower, 32 queries (seed 5)."""
+    import torch
+
+    from repro_torch.core.twotower import TwoTowerConfig, init_params, query_tower
+    from repro_torch.data.synthetic import make_database, make_queries_in_dist
+
+    db, _ = make_database("sift10m-like", SMALL_CUT["n"], seed=0)
+    tcfg = TwoTowerConfig(d_p=db.shape[1])
+    params = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    hub_ids = np.random.default_rng(0).choice(SMALL_CUT["n"],
+                                              SMALL_CUT["hubs"], replace=False)
+    with torch.no_grad():
+        reps = query_tower(params, tcfg, torch.from_numpy(db[hub_ids]))
+    return {"db": db, "tcfg": tcfg,
+            "params": {n: p.detach().numpy()
+                       for n, p in params.as_dict().items()},
+            "hub_ids": hub_ids, "hub_reps": reps.numpy(),
+            "queries": make_queries_in_dist(db, SMALL_CUT["queries"], seed=5)}
+
+
+def partition_rank(rank: int, world: int, init_file: str, src: str,
+                   work: str, dev: str, t_spawn: float, out_q) -> None:
+    """One rank of phase 15, in a process of its own: joins the gloo group
+    (``file://`` rendezvous), reads the phase's inputs from
+    ``work/args.pkl`` (which ``partition_phase`` wrote; a file, so the
+    ranks start together: arguments of the spawn would hold the parent
+    until each child had imported torch to read them), runs
+    ``partition_checks`` and puts ``(rank, ok, result or traceback)`` on
+    ``out_q``."""
+    import datetime
+    import pickle
+    import traceback
+
+    t_enter = time.time()
+    try:
+        sys.path.insert(0, src)
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        torch.set_num_threads(1)  # four ranks share the host's cores
+        dev = torch.device(dev)
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        t_init = time.time()
+        with open(Path(work) / "args.pkl", "rb") as f:
+            args = pickle.load(f)
+        try:
+            out = partition_checks(torch, np, dist, rank, dev, Path(work),
+                                   args)
+        finally:
+            dist.destroy_process_group()
+        # the stages' seconds: from the spawn to this function (interpreter
+        # and imports), to the joined group, then partition_checks' own
+        out["stage_s"] = {"start": t_enter - t_spawn,
+                          "torch_and_group": t_init - t_enter,
+                          **out["stage_s"]}
+        out_q.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 — sent to the parent, raised there
+        out_q.put((rank, False, traceback.format_exc()))
+
+
+def partition_checks(torch, np, dist, rank, dev, work: Path, args) -> dict:
+    """The body of ``partition_rank``: (a) this rank's shard of the index
+    (its rows of ``work/db.npy``, a local ``knn_graph(R=16)`` built on
+    ``dev``, its hubs), ``make_search_step`` over the eval queries, one
+    warm call and three timed ones, then the merge alone timed three times
+    on the same candidates; (b) the small cut searched on a ``dev`` mesh
+    and on a CPU mesh; (c) ``cross_pod_grad_sync`` on a (2, 2) ("pod",
+    "data") mesh of ``dev`` tensors; (d) one ``sgd`` step of the reduced
+    gemma-2b in float32, data-parallel on ranks 0-1, and on rank 0 alone
+    without a mesh."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.distributed import (
+        build_sharded_gate, local_search, make_search_step, merge_top_k,
+        mesh_all_gather, search_knobs, shard_index,
+    )
+    from repro_torch.distributed.sharding import ShardingCtx, make_profile
+    from repro_torch.graphs.knn import knn_graph
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model, make_inputs
+    from repro_torch.train.compress import cross_pod_grad_sync
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import sgd
+
+    cuda = dev.type == "cuda"
+    stage = {}
+    t_stage = [time.perf_counter()]
+
+    def mark(name):
+        _sync(torch, dev)
+        now = time.perf_counter()
+        stage[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    shape, axes = PARTITIONS
+    mesh = make_host_mesh(shape, axes, device=dev.type)
+    p = shard_index(mesh)
+    out = {"shard": p, "stage_s": stage}
+    mark("mesh")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    # (a) the partitioned index
+    tcfg = args["tcfg"]
+    db = np.load(work / "db.npy", mmap_mode="r")
+
+    def local_graph(rows, R):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        g = knn_graph(rows, R, device=dev)
+        out["graph_build_s"] = time.perf_counter() - t0
+        return g
+
+    sg = build_sharded_gate(mesh, db, (tcfg, args["params"]),
+                            args["hub_reps"], args["hub_ids"], local_graph,
+                            R=PART_R)
+    mark("shard_and_graph")
+    np.save(work / f"neighbors{p}.npy", sg.neighbors.cpu().numpy())
+    out.update(hub_reps=sg.hub_reps.cpu().numpy(),
+               hub_local_ids=sg.hub_local_ids.cpu().numpy(),
+               offset=int(sg.offsets[0]))
+    knobs = args["knobs"]
+    step = make_search_step(mesh, tcfg, **knobs)
+    q = torch.as_tensor(args["queries"], device=dev)
+    if cuda:
+        out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    step(sg, q)  # warm
+    secs = []
+    for _ in range(3):
+        dist.barrier()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        ids, dists, hops = step(sg, q)
+        _sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+    loc_ids, loc_d, _ = local_search(sg, q, tcfg, **search_knobs(**knobs))
+    merge_secs = []
+    for _ in range(3):
+        dist.barrier()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        merged = merge_top_k(mesh_all_gather(loc_ids, mesh),
+                             mesh_all_gather(loc_d, mesh), knobs["k"])
+        _sync(torch, dev)
+        merge_secs.append(time.perf_counter() - t0)
+    out.update(step_s=secs, merge_s=merge_secs,
+               ids=ids.cpu().numpy(), dists=dists.cpu().numpy(),
+               merge_equal=bool(torch.equal(merged[0], ids)
+                                and torch.equal(merged[1], dists)),
+               mean_hops=float(hops.float().mean()),
+               transport=str(loc_ids.device.type))
+    if cuda:
+        out["search_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del sg, q, ids, dists, loc_ids, loc_d, merged
+    mark("searches_and_merges")
+
+    # (b) the small cut on this device's mesh and on a CPU mesh
+    small = args["small"]
+    out["small"] = {}
+    for side in ("dev", "cpu"):
+        m = mesh if side == "dev" else make_host_mesh(shape, axes,
+                                                      device="cpu")
+        d = dev if side == "dev" else torch.device("cpu")
+        sg_s = build_sharded_gate(
+            m, small["db"], (small["tcfg"], small["params"]),
+            small["hub_reps"], small["hub_ids"],
+            lambda rows, R, d=d: knn_graph(rows, R, device=d), R=PART_R)
+        got = make_search_step(m, small["tcfg"], **SMALL_CUT["knobs"])(
+            sg_s, small["queries"])
+        out["small"][side] = (got[0].cpu().numpy(), got[1].cpu().numpy())
+    mark("small_cut")
+
+    # (c) the cross-pod sync on this device's tensors
+    pm = make_host_mesh((2, 2), ("pod", "data"), device=dev.type)
+    pod = pm.get_coordinate()[0]
+    g, _ = cross_pod_grad_sync({"w": torch.full((8,), float(pod), device=dev)},
+                               {"w": torch.zeros(8, device=dev)}, pm,
+                               axis="pod")
+    out["cross_pod"] = g["w"].cpu().numpy()
+    mark("cross_pod")
+
+    # (d) the data-parallel train step on ranks 0-1 (every rank builds the
+    # mesh: its groups are made collectively)
+    dm = make_host_mesh((2,), ("data",), device=dev.type)
+    if rank < 2:
+        cfg = get_reduced(args["train_arch"]).with_(compute_dtype="float32")
+        model = build_model(cfg)
+        rows, seq = args["train_shape"]
+        batch = make_inputs(cfg, ShapeSpec("t", "train", seq, rows), seed=0,
+                            device=dev)
+
+        def one_step(ctx):
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            opt = sgd(1e-2)
+            kw = {} if ctx is None else {"ctx": ctx}
+            st, m = make_train_step(model, opt, **kw)(
+                {"params": params, "opt": opt.init(params)}, batch)
+            return float(m["loss"]), {n: v.cpu().numpy()
+                                      for n, v in st["params"].items()}
+
+        out["train_dp"] = one_step(ShardingCtx(dm, make_profile("train")))
+        if rank == 0:
+            out["train_single"] = one_step(None)
+    dist.barrier()
+    mark("train")
+    return out
+
+
+def run_partition_ranks(np, work: Path, dev, args: dict, world: int) -> list:
+    """Writes ``args`` to ``work/args.pkl``, spawns ``world`` ranks of
+    ``partition_rank`` (rendezvous file under ``work``) and returns their
+    results in rank order; raises with a rank's traceback, or if the ranks
+    do not finish in ``RANK_TIMEOUT_S``.  Every process is stopped however
+    this ends."""
+    import pickle
+    import queue
+
+    with open(work / "args.pkl", "wb") as f:
+        pickle.dump(args, f)
+    ctx = multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    t_spawn = time.time()
+    procs = [ctx.Process(target=partition_rank,
+                         args=(r, world, str(work / "rendezvous"),
+                               str(ROOT / "src"), str(work), str(dev),
+                               t_spawn, out_q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        while len(results) < world:
+            try:
+                rank, ok, res = out_q.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise RuntimeError(f"phase 15: {world - len(results)} ranks "
+                                   f"did not finish in {RANK_TIMEOUT_S} s"
+                                   ) from None
+            require(ok, f"phase 15: rank {rank} failed:\n{res}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    return [results[r] for r in range(world)]
+
+
+def partition_reference(torch, np, db, tcfg, params, ranks, work: Path,
+                        queries, knobs, dev):
+    """The four shards' searches composed in this one process: each shard
+    from its rows, the neighbours its rank built and the hubs it kept,
+    ``local_search`` with the step's knobs, then ``merge_top_k``."""
+    from repro_torch.core.distributed import (
+        ShardedGate, local_search, merge_top_k, search_knobs,
+    )
+
+    k = knobs["k"]
+    knobs = search_knobs(**knobs)
+    tp = {n: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+          for n, v in params.items()}
+    q = torch.as_tensor(queries, device=dev)
+    per = len(db) // len(ranks)
+    cand_ids, cand_d = [], []
+    for r in sorted(ranks, key=lambda r: r["shard"]):
+        lo = r["offset"]
+        rows = np.asarray(db[lo:lo + per])
+        sg = ShardedGate(
+            db=torch.as_tensor(rows, device=dev),
+            db_norms=torch.as_tensor(
+                np.sum(rows.astype(np.float32) ** 2, axis=1), device=dev),
+            neighbors=torch.as_tensor(
+                np.load(work / f"neighbors{r['shard']}.npy"), device=dev),
+            hub_reps=torch.as_tensor(r["hub_reps"], device=dev),
+            hub_local_ids=torch.as_tensor(r["hub_local_ids"], device=dev),
+            tower_params=tp,
+            offsets=torch.tensor([lo], dtype=torch.int32, device=dev))
+        ids, d, _ = local_search(sg, q, tcfg, **knobs)
+        cand_ids.append(ids)
+        cand_d.append(d)
+        del sg
+    ids, d = merge_top_k(torch.stack(cand_ids), torch.stack(cand_d), k)
+    return ids.cpu().numpy(), d.cpu().numpy()
+
+
+def partition_phase(torch, np, db, tower, hubs, eval_q, gt, dev,
+                    knobs=PART_KNOBS, train_arch: str = "gemma-2b",
+                    train_shape=(8, 128)) -> dict:
+    """Phase 15: the partitioned GATE index (``repro_torch.core.
+    distributed``) on 4 gloo ranks of a (2, 2) ("data", "model") mesh
+    sharing ``dev``, each owning a contiguous quarter of ``db``; ``tower``
+    is (TwoTowerConfig, parameters) and ``hubs`` (ids, representations),
+    phase 4's.  Gates: the merged ids and distances the same on every rank
+    and equal to this process's composition of the four shards' searches
+    (bits); distances ascending, ids unique per row and in [0, N); at the
+    small cut the ``dev`` mesh's ids on at least 99% of the CPU mesh's
+    slots and its distances within 1e-4 of their largest; the cross-pod
+    sync 0.5 within 0.02 on every rank; the data-parallel step's loss
+    within 1e-6 relative of the one-rank step's and its parameters within
+    rtol 2e-3 / atol 2e-5.  Reports recall@10 against ``gt``, QPS, the
+    merge's share of a step, each rank's peak allocation and graph build
+    seconds, and the phase's seconds."""
+    t_phase = time.perf_counter()
+    tcfg, params = tower
+    params = {n: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v)) for n, v in dict(params).items()}
+    world = int(np.prod(PARTITIONS[0]))
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase15-", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        np.save(work / "db.npy", np.asarray(db))
+        save_s = time.perf_counter() - t0
+        args = {"tcfg": tcfg, "params": params,
+                "hub_ids": np.asarray(hubs[0]),
+                "hub_reps": np.asarray(hubs[1], np.float32),
+                "queries": np.asarray(eval_q, np.float32),
+                "small": small_cut(np), "train_arch": train_arch,
+                "train_shape": tuple(train_shape), "knobs": dict(knobs)}
+        t0 = time.perf_counter()
+        ranks = run_partition_ranks(np, work, dev, args, world)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_ids, want_d = partition_reference(torch, np, db, tcfg, params,
+                                               ranks, work, eval_q, knobs,
+                                               dev)
+        ref_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = _partition_gates(np, ranks, want_ids, want_d, len(db), gt)
+    out.update(ranks=world, mesh=list(PARTITIONS[0]), axes=PARTITIONS[1],
+               rows_per_rank=len(db) // world, queries=len(eval_q),
+               knobs=dict(knobs), local_graph_R=PART_R,
+               db_save_s=save_s, ranks_wall_s=ranks_s, reference_s=ref_s,
+               seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def _partition_gates(np, ranks, want_ids, want_d, n, gt) -> dict:
+    """Phase 15's checks on the ranks' results; returns the record."""
+    from repro_torch.graphs.knn import recall_at_k
+
+    ids, dists = ranks[0]["ids"], ranks[0]["dists"]
+    for r in ranks[1:]:
+        require(np.array_equal(r["ids"], ids)
+                and np.array_equal(r["dists"], dists),
+                f"phase 15: rank {r['shard']}'s merged result differs")
+    require(all(r["merge_equal"] for r in ranks),
+            "phase 15: the merge alone differs from the step's")
+    require(np.array_equal(ids, want_ids) and np.array_equal(dists, want_d),
+            "phase 15: the merged ids / distances differ from the "
+            "single-process composition of the four shards' searches")
+    require(bool((np.diff(dists, axis=1) >= 0).all()),
+            "phase 15: distances do not ascend along a row")
+    require(all(len(set(row.tolist())) == len(row) for row in ids),
+            "phase 15: an id repeats within a row")
+    require(ids.min() >= 0 and ids.max() < n,
+            f"phase 15: an id outside [0, {n})")
+    s_dev, s_cpu = (ranks[0]["small"][k] for k in ("dev", "cpu"))
+    agree = float((s_dev[0] == s_cpu[0]).mean())
+    d_rel = float(np.abs(s_dev[1] - s_cpu[1]).max() / np.abs(s_cpu[1]).max())
+    require(agree >= 0.99,
+            f"phase 15: small cut, ids agree with the CPU's on {agree:.4f}")
+    require(d_rel <= 1e-4,
+            f"phase 15: small cut, distances off the CPU's by {d_rel:.3g}")
+    cross = [float(np.abs(r["cross_pod"] - 0.5).max()) for r in ranks]
+    require(max(cross) <= 0.02,
+            f"phase 15: cross_pod_grad_sync off 0.5 by {max(cross):.3g}")
+    (l_dp, p_dp), (l_1, p_1) = ranks[0]["train_dp"], ranks[0]["train_single"]
+    require(ranks[1]["train_dp"][0] == l_dp,
+            "phase 15: the two data-parallel ranks' losses differ")
+    loss_rel = abs(l_dp - l_1) / abs(l_1)
+    excess = max(float((np.abs(p_dp[k] - p_1[k])
+                        - (2e-5 + 2e-3 * np.abs(p_1[k]))).max()) for k in p_1)
+    require(loss_rel <= 1e-6,
+            f"phase 15: data-parallel loss off by {loss_rel:.3g} relative")
+    require(excess <= 0.0, "phase 15: data-parallel parameters outside "
+            "rtol 2e-3 / atol 2e-5 of the one-rank step's")
+    step = [statistics.median(r["step_s"]) for r in ranks]
+    merge = [statistics.median(r["merge_s"]) for r in ranks]
+    return {
+        "recall_at_10": float(recall_at_k(ids, gt, 10)) if gt is not None
+        else None,
+        "qps": len(ids) / max(step),
+        "step_s": [r["step_s"] for r in ranks],
+        "merge_s": [r["merge_s"] for r in ranks],
+        "merge_share": max(merge) / max(step),
+        "mean_hops": [r["mean_hops"] for r in ranks],
+        "graph_build_s": [r["graph_build_s"] for r in ranks],
+        "build_peak_bytes": [r.get("build_peak_bytes") for r in ranks],
+        "search_peak_bytes": [r.get("search_peak_bytes") for r in ranks],
+        "transport": ranks[0]["transport"],
+        "stage_s": [r["stage_s"] for r in ranks],
+        "small_cut": {"id_agreement": agree, "dist_rel": d_rel},
+        "cross_pod_max_err": max(cross),
+        "train": {"loss_dp": l_dp, "loss_single": l_1, "loss_rel": loss_rel,
+                  "params_max_excess_over_tol": excess},
+    }
+
+
 CSRC = "src/repro_torch/csrc/"
 SOURCES = {"gather_rows_dist": CSRC + "gather_dist.cu",
            "gather_rows_dist_q8": CSRC + "gather_dist.cu",
@@ -3112,7 +3568,8 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         log(f"memory before phase 12: {torch.cuda.memory_allocated()} bytes")
         K.reset_launch_counts()
-        moe_rag = moe_rag_phase(torch, np, idx, eval_q, dev)
+        # 4 requests, not 8: the smoke's 900 s with phase 15 (PERF.md §4)
+        moe_rag = moe_rag_phase(torch, np, idx, eval_q, dev, n_req=4)
         moe_rag_launches = K.launch_counts()
         log("launches on the MoE RAG path: " + json.dumps(moe_rag_launches))
         for name in ("gather_rows_dist", "twotower_score"):
@@ -3133,7 +3590,7 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         log(f"memory before phase 13: {torch.cuda.memory_allocated()} bytes")
         K.reset_launch_counts()
-        rec_rag = recurrent_rag_phase(torch, np, idx, eval_q, dev)
+        rec_rag = recurrent_rag_phase(torch, np, idx, eval_q, dev, n_req=4)
         rec_rag_launches = K.launch_counts()
         log("launches on the recurrent RAG path: "
             + json.dumps(rec_rag_launches))
@@ -3166,6 +3623,22 @@ def main(argv=None) -> int:
         + json.dumps(train_launches))
     log(f"phase 14: {train['seconds']:.1f} s")
 
+    # 15. the partitioned index on 4 ranks sharing the card, after phase
+    # 14's models are freed; its own counts (this process's), which no
+    # kernel needs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"memory before phase 15: {torch.cuda.memory_allocated()} bytes")
+    K.reset_launch_counts()
+    part = partition_phase(
+        torch, np, db, (idx.tower_cfg, idx.tower_params.as_dict()),
+        (idx.hubs.ids, idx.nav.reps), eval_q, gt, dev)
+    part_launches = K.launch_counts()
+    log("launches on the partitioned path (none required): "
+        + json.dumps(part_launches))
+    log("phase 15: " + json.dumps(part))
+    log(f"phase 15: {part['seconds']:.1f} s")
+
     line = kernels_line(kres, api, hop, launches, serve_launches,
                         fb_launches, single, greedy, abl_launches,
                         rag_launches, moe_rag_launches, rec_rag_launches)
@@ -3189,6 +3662,7 @@ def main(argv=None) -> int:
         "moe_rag": moe_rag, "moe_rag_launches": moe_rag_launches,
         "recurrent_rag": rec_rag, "recurrent_rag_launches": rec_rag_launches,
         "train": train, "train_launches": train_launches,
+        "partitioned": part, "partitioned_launches": part_launches,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

@@ -15,8 +15,13 @@ Layout: one directory per step —
     and LATEST flips by ``os.replace``, so a crash mid-save leaves the last
     complete checkpoint as the restore point;
   * ``keep_last`` prunes old steps after the pointer lands;
-  * restore returns numpy arrays, or tensors on ``device=`` (this takes the
-    place of ``repro``'s target shardings).
+  * restore returns numpy arrays, or places them by ``target_shardings``:
+    a tree of the state's shape whose leaves are each a device or a
+    ``(DeviceMesh, placements)`` pair (``distributed.sharding.
+    named_sharding``'s result), or one device for every array;
+  * a DTensor is saved as its ``full_tensor()``, and where
+    ``torch.distributed`` is initialised only rank 0 writes (every rank
+    takes part in gathering the full tensors).
 """
 from __future__ import annotations
 
@@ -30,16 +35,21 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 SEP = "/"
 
 
 def _flatten(tree, prefix=""):
+    """Leaves by "/"-joined key path; a ``(DeviceMesh, placements)`` pair
+    of a target-shardings tree is a leaf."""
     out = {}
     if isinstance(tree, dict):
         for k in sorted(tree):
             out.update(_flatten(tree[k], f"{prefix}{k}{SEP}"))
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, (list, tuple)) and not _is_sharding(tree):
         for i, v in enumerate(tree):
             out.update(_flatten(v, f"{prefix}{i}{SEP}"))
     else:
@@ -74,9 +84,33 @@ def _nest_from_paths(flat: Dict[str, Any]):
 
 
 def _to_host(v) -> np.ndarray:
+    if isinstance(v, DTensor):
+        v = v.full_tensor()  # a collective: every rank of the mesh calls it
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
+
+
+def _is_sharding(t) -> bool:
+    """A ``(DeviceMesh, placements)`` leaf of a target-shardings tree."""
+    return (isinstance(t, tuple) and len(t) == 2
+            and isinstance(t[0], DeviceMesh))
+
+
+def _place(v: np.ndarray, target):
+    if target is None:
+        return v
+    if _is_sharding(target):
+        mesh, placements = target
+        return distribute_tensor(torch.as_tensor(v, device=mesh.device_type),
+                                 mesh, list(placements))
+    return torch.as_tensor(v, device=target)
+
+
+def _writes() -> bool:
+    """Only rank 0 writes where a process group is initialised."""
+    return not (dist.is_available() and dist.is_initialized()) or (
+        dist.get_rank() == 0)
 
 
 class CheckpointManager:
@@ -96,10 +130,12 @@ class CheckpointManager:
         *,
         blocking: bool = False,
     ):
-        """Snapshot ``state`` (nested dicts / lists of arrays or tensors) to
-        host, then serialize it on a background thread."""
+        """Snapshot ``state`` (nested dicts / lists of arrays, tensors or
+        DTensors) to host, then serialize it on a background thread."""
         self.wait()  # one save in flight at a time
         host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        if not _writes():
+            return
         manifest = {
             "step": step,
             "keys": {
@@ -171,14 +207,20 @@ class CheckpointManager:
         self,
         step: Optional[int] = None,
         *,
+        target_shardings=None,
         device=None,
         structure=None,
     ) -> Tuple[Any, Dict[str, Any]]:
-        """Returns ``(state, extra)`` of ``step`` (default: LATEST).  With
-        ``device=None`` the arrays are numpy, as ``repro`` returns them
-        without shardings; with a device they are tensors on it.
-        ``structure`` (a tree of the state's shape) restores lists and
-        tuples; without it the state nests dicts by key path."""
+        """Returns ``(state, extra)`` of ``step`` (default: LATEST).
+
+        ``target_shardings`` is a tree of the state's shape whose leaves are
+        each a device or a ``(DeviceMesh, placements)`` pair (the array
+        comes back as ``distribute_tensor`` on that mesh, so every rank of
+        it calls ``restore``), or one device for every array; ``device=``
+        is that one device.  An array with no target stays numpy, as
+        ``repro`` returns it without shardings.  ``structure`` (a tree of
+        the state's shape) restores lists, tuples and "/"-named leaves;
+        without it the state nests dicts by key path."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -188,8 +230,13 @@ class CheckpointManager:
             manifest = json.load(f)
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: z[k] for k in z.files}
-        if device is not None:
-            flat = {k: torch.as_tensor(v, device=device) for k, v in flat.items()}
+        targets = target_shardings if target_shardings is not None else device
+        if isinstance(targets, (dict, list, tuple)) and not _is_sharding(
+                targets):
+            leaves = _flatten(targets)
+            flat = {k: _place(v, leaves.get(k)) for k, v in flat.items()}
+        else:
+            flat = {k: _place(v, targets) for k, v in flat.items()}
         state = (_nest_from_paths(flat) if structure is None
                  else _unflatten(flat, structure))
         return state, manifest.get("extra", {})

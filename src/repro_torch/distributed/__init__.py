@@ -1,2 +1,2 @@
-"""Fault tolerance (counterpart of ``repro.distributed.fault``); the
-sharding half of ``repro.distributed`` comes with ROADMAP A7."""
+"""Sharding rules and the activation-constraint context (``sharding``) and
+fault tolerance (``fault``): counterpart of ``repro.distributed``."""

@@ -1,5 +1,5 @@
-"""Fault-tolerant training runner: checkpoint and restart, straggler
-accounting, restore onto a device (counterpart of
+"""Fault-tolerant training runner: checkpoint and restart, elastic
+re-shard, straggler accounting (counterpart of
 ``repro.distributed.fault``).
 
 ``FaultTolerantRunner`` wraps any (state, batch) → (state, metrics) step:
@@ -7,9 +7,10 @@ accounting, restore onto a device (counterpart of
   * periodic asynchronous checkpoints (``ckpt.CheckpointManager``, which
     snapshots the state to the host before its background write);
   * ``run`` survives step-level failures: on an exception it restores the
-    last checkpoint onto the runner's device, rebuilds the data position
-    from the restored step (the pipeline is counter-based, so no data is
-    skipped or repeated) and retries; ``max_restarts`` bounds the loop;
+    last checkpoint onto the runner's target shardings (or its device),
+    rebuilds the data position from the restored step (the pipeline is
+    counter-based, so no data is skipped or repeated) and retries;
+    ``max_restarts`` bounds the loop;
   * straggler hooks: a ring buffer of step wall times and a z-score
     detector (``straggler_report``).
 
@@ -19,8 +20,10 @@ be told from nesting on restore: ``structure`` (a tree of the state's
 shape, e.g. ``train.loop.train_state_structure``) rebuilds it.
 ``repro``'s runner passes none and nests such names one level deeper.
 
-``restore_elastic`` loads a checkpoint onto a device.  Re-placing it on a
-mesh of another shape comes with the sharding slice (ROADMAP A7).
+``restore_elastic`` loads a checkpoint onto a device or re-places every
+array on a mesh, possibly of another shape than the one it was saved from,
+by a sharding tree whose leaves are ``(DeviceMesh, placements)`` pairs
+(checkpoints hold full arrays, so they do not depend on the mesh).
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ class FaultTolerantRunner:
         step_fn: Callable,         # (state, batch) -> (state, metrics)
         batch_fn: Callable,        # step:int -> batch
         init_state_fn: Callable,   # () -> state
+        target_shardings=None,     # optional sharding tree for elastic restore
         *,
         device="cuda",             # where a restored state is placed
         structure=None,            # a tree of the state's shape
@@ -58,6 +62,7 @@ class FaultTolerantRunner:
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.init_state_fn = init_state_fn
+        self.target_shardings = target_shardings
         self.device = device
         self.structure = structure
         self.mgr = CheckpointManager(cfg.ckpt_dir, keep_last=cfg.keep_last)
@@ -69,8 +74,9 @@ class FaultTolerantRunner:
         latest = self.mgr.latest_step()
         if latest is None:
             return self.init_state_fn(), 0
-        state, extra = self.mgr.restore(latest, device=self.device,
-                                        structure=self.structure)
+        state, extra = self.mgr.restore(
+            latest, target_shardings=self.target_shardings,
+            device=self.device, structure=self.structure)
         return state, int(extra.get("next_step", latest + 1))
 
     def run(
@@ -128,8 +134,12 @@ class FaultTolerantRunner:
         }
 
 
-def restore_elastic(ckpt_dir: str, step: Optional[int] = None, *,
-                    device="cuda"):
-    """Load a checkpoint (``repro``'s layout, from either package) with
-    every array placed on ``device``.  Returns (state, extra)."""
-    return CheckpointManager(ckpt_dir).restore(step, device=device)
+def restore_elastic(ckpt_dir: str, target_shardings="cuda",
+                    step: Optional[int] = None, *, structure=None):
+    """Load a checkpoint (``repro``'s layout, from either package) onto a
+    possibly different mesh: ``target_shardings`` is a device for every
+    array or a tree of the state's shape whose leaves are devices or
+    ``(DeviceMesh, placements)`` pairs.  ``structure`` rebuilds "/"-named
+    leaves (see ``FaultTolerantRunner``).  Returns (state, extra)."""
+    return CheckpointManager(ckpt_dir).restore(
+        step, target_shardings=target_shardings, structure=structure)

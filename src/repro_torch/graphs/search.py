@@ -28,7 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.graphs.params import SearchParams
+from repro_torch.graphs.params import SearchParams, resolve_search_params
 from repro_torch.kernels import _build, gather_rows_dist, gather_rows_dist_q8, ref
 from repro_torch.obs.telemetry import SearchTelemetry
 from repro_torch.quant import QuantizedDb
@@ -237,7 +237,9 @@ def batched_search(
     k: Optional[int] = None,
     inv_norms=None,
     quant: Optional[QuantizedDb] = None,
+    db_lane=None,
     device="cuda",
+    **legacy,
 ):
     """Batched Algorithm-1 search.
 
@@ -245,14 +247,17 @@ def batched_search(
     entry_ids (B, E); numpy arrays or tensors, moved to ``device``.
     ``params.kernel`` selects the distance path; ``"fused_q8"`` needs
     ``quant=`` (``repro_torch.quant.quantize_db(db)``); cosine may pass
-    ``inv_norms=`` to reuse a precomputed ``1/‖row‖`` cache.
+    ``inv_norms=`` to reuse a precomputed ``1/‖row‖`` cache.  ``db_lane``
+    is accepted for ``repro``'s signature and not used, as in
+    ``beam_search_single``.  The old per-knob keywords (``beam_width=``,
+    ``max_hops=``, ...) still work through ``resolve_search_params``: each
+    warns once and counts into ``api.deprecated_kwargs``.
 
     Returns ``SearchResult``; with ``params.instrument=True`` returns
     ``(SearchResult, SearchTelemetry)`` with (B,) telemetry fields.
     """
-    params = params if params is not None else SearchParams()
-    if k is not None:
-        params = params.replace(k=k)
+    del db_lane
+    params = resolve_search_params("batched_search", params, legacy, k=k)
     if params.kernel == "fused_q8" and quant is None:
         raise ValueError(
             'SearchParams(kernel="fused_q8") requires quant= (the int8 '

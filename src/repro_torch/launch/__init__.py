@@ -1,2 +1,2 @@
-"""Command-line entry points (counterpart of ``repro.launch``): ``serve``
-and ``train``."""
+"""Command-line entry points and the mesh factories (counterpart of
+``repro.launch``): ``serve``, ``train`` and ``mesh``."""

@@ -9,8 +9,9 @@ Python loop over layers (``repro`` scans them).
 Attention is blockwise (flash-style online softmax over KV chunks, inside
 an outer loop over query chunks) in plain PyTorch ops that follow
 ``repro``'s step by step: ``repro`` keeps it in plain ``jnp`` (no Pallas
-kernel), so there is no kernel to port.  ``repro``'s sharding context is
-dropped: off a mesh its ``constrain`` is the identity.
+kernel), so there is no kernel to port.  ``repro``'s sharding context
+(``ctx``, a ``distributed.sharding.ShardingCtx``) is threaded through in
+its positions; its ``constrain`` never changes a value.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -180,7 +183,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def glu_mlp(x, w_gate, w_up, w_down, act: str):
+def glu_mlp(x, w_gate, w_up, w_down, act: str,
+            ctx: ShardingCtx = NULL_CTX):
     h_g = x @ w_gate.to(x.dtype)
     h_u = x @ w_up.to(x.dtype)
     if act == "swiglu":
@@ -189,6 +193,7 @@ def glu_mlp(x, w_gate, w_up, w_down, act: str):
         h = F.gelu(h_g, approximate="tanh") * h_u
     else:
         raise ValueError(act)
+    h = ctx.constrain(h, ("act_batch", None, "act_ff"))
     return h @ w_down.to(x.dtype)
 
 

@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models.common import (
     FlatParamsLM,
     ParamSpec,
@@ -110,7 +111,7 @@ class EncDecLM(FlatParamsLM):
         wo = p[f"{prefix}wo"].to(dt)
         return a.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
-    def _attn(self, p, prefix, xq, pos_q, pos_k, causal, kv_src=None,
+    def _attn(self, p, prefix, xq, pos_q, pos_k, causal, ctx, kv_src=None,
               rope=True):
         """Pre-norm attention; ``kv_src=None`` is self-attention on the
         normed ``xq``.  Returns (output projected to d, (k, v))."""
@@ -123,31 +124,34 @@ class EncDecLM(FlatParamsLM):
         if rope:
             q = apply_rope(q, pos_q, cfg.rope_theta)
             k = apply_rope(k, pos_k, cfg.rope_theta)
+        q = ctx.constrain(q, ("act_batch", None, "act_heads", None))
         out = blockwise_attention(q, k, v, pos_q, pos_k, causal=causal,
                                   chunk=cfg.attn_chunk)
         return self._out(p, prefix, out, xq.dtype), (k, v)
 
-    def _mlp(self, p, x):
+    def _mlp(self, p, x, ctx):
         h = rms_norm(x, p["mlp_norm"], self.cfg.norm_eps)
         return glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"],
-                       self.cfg.mlp_act)
+                       self.cfg.mlp_act, ctx)
 
     @staticmethod
     def _positions(B: int, S: int, device) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
-    def _encode(self, params, frames):
+    def _encode(self, params, frames, ctx):
         """Returns (the normed encoder output, its positions)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
         x = torch.as_tensor(frames, device=params["tok_embed"].device).to(dt)
+        x = ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
         B, S, _ = x.shape
         pos = self._positions(B, S, x.device)
 
         def body(x, p_l):
-            a, _ = self._attn(p_l, "", x, pos, pos, causal=False)
+            a, _ = self._attn(p_l, "", x, pos, pos, causal=False, ctx=ctx)
             x = x + a
-            return x + self._mlp(p_l, x)
+            x = x + self._mlp(p_l, x, ctx)
+            return ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
 
         for i in range(cfg.encoder_layers):
             x = remat(cfg, body, x, self._stack(params, "enc", i))
@@ -157,22 +161,25 @@ class EncDecLM(FlatParamsLM):
         emb = params["tok_embed"].to(torch_dtype(self.cfg.compute_dtype))
         return emb[torch.as_tensor(tokens).to(emb.device).long()]
 
-    def _dec_layer(self, p_l, x, pos, enc_out, enc_pos):
+    def _dec_layer(self, p_l, x, pos, enc_out, enc_pos, ctx):
         """One decoder layer over the full sequence.  Returns (x, self K / V,
         cross K / V)."""
-        a, kv_self = self._attn(p_l, "", x, pos, pos, causal=True)
+        a, kv_self = self._attn(p_l, "", x, pos, pos, causal=True, ctx=ctx)
         x = x + a
         a, kv_cross = self._attn(p_l, "x", x, pos, enc_pos, causal=False,
-                                 kv_src=enc_out, rope=False)
+                                 ctx=ctx, kv_src=enc_out, rope=False)
         x = x + a
-        return x + self._mlp(p_l, x), kv_self, kv_cross
+        x = x + self._mlp(p_l, x, ctx)
+        x = ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
+        return x, kv_self, kv_cross
 
-    def _decoder_full(self, params, tokens, enc_out, enc_pos,
+    def _decoder_full(self, params, tokens, enc_out, enc_pos, ctx,
                       collect_caches: bool):
         """Returns (the normed decoder output, positions, ((k, v), (xk, xv))
         stacked over the layers, or None)."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = ctx.constrain(self._embed(params, tokens),
+                          ("act_batch", "act_seq", "act_embed"))
         B, S, _ = x.shape
         pos = self._positions(B, S, x.device)
         ks, vs, xks, xvs = [], [], [], []
@@ -180,10 +187,10 @@ class EncDecLM(FlatParamsLM):
             p_l = self._stack(params, "dec", i)
             if not collect_caches:
                 x = remat(cfg, lambda x, p: self._dec_layer(
-                    p, x, pos, enc_out, enc_pos)[0], x, p_l)
+                    p, x, pos, enc_out, enc_pos, ctx)[0], x, p_l)
                 continue
             x, (k, v), (xk, xv) = self._dec_layer(p_l, x, pos, enc_out,
-                                                  enc_pos)
+                                                  enc_pos, ctx)
             ks.append(k)
             vs.append(v)
             xks.append(xk)
@@ -198,29 +205,33 @@ class EncDecLM(FlatParamsLM):
         return x @ params["lm_head"].to(x.dtype)
 
     # --------------------------------------------------------------------- API
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardingCtx = NULL_CTX):
         """Mean next-token cross entropy of the decoder over
         ``batch["tokens"]`` given ``batch["frames"]``, against
         ``batch["labels"]`` (label -1 is ignored); returns (loss, {"ce",
         "aux"}), aux zero."""
-        enc_out, enc_pos = self._encode(params, batch["frames"])
+        enc_out, enc_pos = self._encode(params, batch["frames"], ctx)
         x, _, _ = self._decoder_full(params, batch["tokens"], enc_out,
-                                     enc_pos, collect_caches=False)
+                                     enc_pos, ctx, collect_caches=False)
         labels = torch.as_tensor(batch["labels"], device=x.device)
-        ce = next_token_ce(self._logits(params, x), labels)
+        logits = ctx.constrain(self._logits(params, x),
+                               ("act_batch", "act_seq", "act_vocab"))
+        ce = next_token_ce(logits, labels)
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     forward = loss
 
-    def prefill(self, params, batch, capacity: Optional[int] = None):
+    def prefill(self, params, batch, ctx: ShardingCtx = NULL_CTX,
+                capacity: Optional[int] = None):
         """Encodes ``batch["frames"]`` and runs the decoder over the prompt
         ``batch["tokens"]``.  capacity: positions the self-attention cache
         must hold (prompt + planned new tokens), default the prompt length.
         Returns (last-position logits (B, V), cache: k, v, pos, xk, xv,
         enc_pos)."""
-        enc_out, enc_pos = self._encode(params, batch["frames"])
+        enc_out, enc_pos = self._encode(params, batch["frames"], ctx)
         x, pos, ((ks, vs), (xks, xvs)) = self._decoder_full(
-            params, batch["tokens"], enc_out, enc_pos, collect_caches=True)
+            params, batch["tokens"], enc_out, enc_pos, ctx,
+            collect_caches=True)
         logits = self._logits(params, x[:, -1:])[:, 0]
         S = pos.shape[1]
         C = max(capacity or S, S)
@@ -241,7 +252,7 @@ class EncDecLM(FlatParamsLM):
         return {"k": kv, "v": kv, "pos": pos, "xk": kv, "xv": kv,
                 "enc_pos": pos}
 
-    def decode(self, params, tokens, cache, t):
+    def decode(self, params, tokens, cache, t, ctx: ShardingCtx = NULL_CTX):
         """tokens: (B, 1); t: (B,) current position.  Returns (logits,
         cache)."""
         cfg = self.cfg
@@ -266,7 +277,7 @@ class EncDecLM(FlatParamsLM):
             a = decode_attention(self._proj(h, p_l["xwq"]), cache["xk"][i],
                                  cache["xv"][i], big, cache["enc_pos"])
             x = x + self._out(p_l, "x", a, dt)
-            x = x + self._mlp(p_l, x)
+            x = x + self._mlp(p_l, x, ctx)
             ks.append(ck)
             vs.append(cv)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models.common import (
     FlatParamsLM,
     ParamSpec,
@@ -43,8 +44,8 @@ from repro_torch.models.ssm import (
 from repro_torch.models.transformer import TensorSpec
 
 
-def _mamba_residual(p_l, x, cfg):
-    return x + mamba_block_full(p_l, x, cfg)[0]
+def _mamba_residual(p_l, x, cfg, ctx):
+    return x + mamba_block_full(p_l, x, cfg, ctx)[0]
 
 
 class HybridLM(FlatParamsLM):
@@ -107,7 +108,7 @@ class HybridLM(FlatParamsLM):
         k = apply_rope(proj(params["s_wk"]), pos, cfg.rope_theta)
         return q, k, proj(params["s_wv"])
 
-    def _shared_out(self, params, x, a):
+    def _shared_out(self, params, x, a, ctx):
         """The attention output ``a`` (B, S, H, hd) projected and added to
         ``x``, then the shared SwiGLU MLP."""
         cfg = self.cfg
@@ -116,28 +117,31 @@ class HybridLM(FlatParamsLM):
         x = x + a.reshape(B, S, -1) @ wo.reshape(-1, d)
         h2 = rms_norm(x, params["s_mlp_norm"], cfg.norm_eps)
         return x + glu_mlp(h2, params["s_w_gate"], params["s_w_up"],
-                           params["s_w_down"], "swiglu")
+                           params["s_w_down"], "swiglu", ctx)
 
-    def _shared_full(self, params, x, pos):
+    def _shared_full(self, params, x, pos, ctx):
         cfg = self.cfg
         h = rms_norm(x, params["s_attn_norm"], cfg.norm_eps)
         q, k, v = self._shared_qkv(params, h, pos)
+        q = ctx.constrain(q, ("act_batch", None, "act_heads", None))
         a = blockwise_attention(q, k, v, pos, pos, causal=True,
                                 chunk=cfg.attn_chunk)
-        return self._shared_out(params, x, a), (k, v)
+        x = self._shared_out(params, x, a, ctx)
+        return ctx.constrain(x, ("act_batch", "act_seq", "act_embed")), (k, v)
 
-    def _shared_decode(self, params, x, ck, cv, cp, t):
+    def _shared_decode(self, params, x, ck, cv, cp, t, ctx):
         pos_q = t[:, None]
         h = rms_norm(x, params["s_attn_norm"], self.cfg.norm_eps)
         q, k, v = self._shared_qkv(params, h, pos_q)
         ck, cv, cp = cache_update(ck, cv, cp, k, v, t)
         a = decode_attention(q, ck, cv, pos_q, cp)
-        return self._shared_out(params, x, a), ck, cv, cp
+        return self._shared_out(params, x, a, ctx), ck, cv, cp
 
     # ------------------------------------------------------------------ modes
-    def _forward_full(self, params, tokens, want_caches: bool):
+    def _forward_full(self, params, tokens, ctx, want_caches: bool):
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = ctx.constrain(self._embed(params, tokens),
+                          ("act_batch", "act_seq", "act_embed"))
         B, S, _ = x.shape
         pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
         kvs, ssm_states, conv_states = [], [], []
@@ -146,20 +150,20 @@ class HybridLM(FlatParamsLM):
             p_l = self._layer(params, i)
             shared = (i + 1) % cfg.attn_every == 0
             if not want_caches:  # the loss path: remat each block, as repro
-                x = remat(cfg, _mamba_residual, p_l, x, cfg)
+                x = remat(cfg, _mamba_residual, p_l, x, cfg, ctx)
                 if shared:
-                    x = remat(cfg, lambda x: self._shared_full(params, x,
-                                                               pos)[0], x)
+                    x = remat(cfg, lambda x: self._shared_full(
+                        params, x, pos, ctx)[0], x)
                 continue
             # conv state = the trailing k-1 conv INPUTS of this layer
             tail = x[:, -(k_conv - 1):]
             h_t = rms_norm(tail, p_l["m_norm"], cfg.norm_eps)
             conv_states.append(h_t @ p_l["wx"].to(tail.dtype))
-            out, h_fin = mamba_block_full(p_l, x, cfg)
+            out, h_fin = mamba_block_full(p_l, x, cfg, ctx)
             x = x + out
             ssm_states.append(h_fin)
             if shared:
-                x, kv = self._shared_full(params, x, pos)
+                x, kv = self._shared_full(params, x, pos, ctx)
                 kvs.append(kv)
         caches = None
         if want_caches:
@@ -168,27 +172,29 @@ class HybridLM(FlatParamsLM):
                       torch.stack(ssm_states), torch.stack(conv_states))
         return x, pos, caches
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardingCtx = NULL_CTX):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (label -1 is ignored); returns (loss, {"ce",
         "aux"}), aux zero."""
         cfg = self.cfg
-        x, _, _ = self._forward_full(params, batch["tokens"], False)
+        x, _, _ = self._forward_full(params, batch["tokens"], ctx, False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = x @ params["lm_head"].to(x.dtype)
+        logits = ctx.constrain(x @ params["lm_head"].to(x.dtype),
+                               ("act_batch", "act_seq", "act_vocab"))
         labels = torch.as_tensor(batch["labels"], device=x.device)
         ce = next_token_ce(logits, labels)
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     forward = loss
 
-    def prefill(self, params, batch, capacity: Optional[int] = None):
+    def prefill(self, params, batch, ctx: ShardingCtx = NULL_CTX,
+                capacity: Optional[int] = None):
         """capacity: total positions the KV caches must hold (prompt +
         planned new tokens); defaults to the prompt length.  Returns
         (last-position logits (B, V), cache)."""
         cfg = self.cfg
         x, pos, (ks, vs, ssm, conv) = self._forward_full(
-            params, batch["tokens"], True)
+            params, batch["tokens"], ctx, True)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = (x @ params["lm_head"].to(x.dtype))[:, 0]
         S = pos.shape[1]
@@ -220,7 +226,7 @@ class HybridLM(FlatParamsLM):
                                 dI), dt),
         }
 
-    def decode(self, params, tokens, cache, t):
+    def decode(self, params, tokens, cache, t, ctx: ShardingCtx = NULL_CTX):
         """tokens: (B, 1); t: (B,) current position.  Returns (logits,
         cache)."""
         cfg = self.cfg
@@ -230,13 +236,14 @@ class HybridLM(FlatParamsLM):
         app = 0
         for i in range(cfg.num_layers):
             out, cs, hs = mamba_block_decode(self._layer(params, i), x, cfg,
-                                             cache["conv"][i], cache["ssm"][i])
+                                             cache["conv"][i], cache["ssm"][i],
+                                             ctx)
             x = x + out
             new_conv.append(cs)
             new_ssm.append(hs)
             if (i + 1) % cfg.attn_every == 0:
                 x, ck, cv, cp = self._shared_decode(
-                    params, x, cache["k"][app], cache["v"][app], cp, t)
+                    params, x, cache["k"][app], cache["v"][app], cp, t, ctx)
                 new_k.append(ck)
                 new_v.append(cv)
                 app += 1

@@ -8,8 +8,11 @@ are wasted, as in ``repro``).
 ``impl="dropping"`` is the GShard-style sort-based dispatch: tokens are
 routed into fixed-capacity per-expert buffers, the experts run as one
 batched product, and each token sums its kept slots' outputs weighted.
-``repro`` splits the tokens into its mesh's data-parallel groups; off a
-mesh that is one group, and the port, which has no mesh, always uses one.
+The tokens are split into the data-parallel groups of the sharding
+context's mesh (``_dp_groups``: the mesh's size over ``act_batch``'s axes),
+each group dispatched on its own with its own capacity, as ``repro`` does;
+off a mesh, or where the batch does not split evenly, that is one group.
+This is the one place where ``ctx`` changes a value.
 
 The expert products are plain PyTorch: ``repro`` computes them with
 ``jnp.einsum`` outside any Pallas kernel.  Top-k ties go to the lowest
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoESpec
+from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx, mesh_shape
 from repro_torch.models.common import ParamSpec, Params, acc_dtype
 
 
@@ -85,12 +89,13 @@ def _router(x: torch.Tensor, w_router: torch.Tensor, moe: MoESpec):
     return top_w, top_ids, aux
 
 
-def _glu(x, wg, wu, wd):
-    return (F.silu(x @ wg) * (x @ wu)) @ wd
+def _glu(x, wg, wu, wd, ctx=NULL_CTX):
+    h = ctx.constrain(F.silu(x @ wg) * (x @ wu), ("act_batch", None, "act_ff"))
+    return h @ wd
 
 
-def moe_ffn(x: torch.Tensor, p: Params, prefix: str,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(x: torch.Tensor, p: Params, prefix: str, cfg: ModelConfig,
+            ctx: ShardingCtx = NULL_CTX) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B,S,D), aux loss scalar in float32)."""
     moe = cfg.moe
     assert moe is not None
@@ -98,9 +103,9 @@ def moe_ffn(x: torch.Tensor, p: Params, prefix: str,
     top_w, top_ids, aux = _router(x, p[f"{prefix}router"], moe)
 
     if moe.impl == "dense":
-        out = _dense_dispatch(x, p, prefix, cfg, top_w, top_ids)
+        out = _dense_dispatch(x, p, prefix, cfg, top_w, top_ids, ctx)
     elif moe.impl == "dropping":
-        out = _dropping_dispatch(x, p, prefix, cfg, top_w, top_ids)
+        out = _dropping_dispatch(x, p, prefix, cfg, top_w, top_ids, ctx)
     else:
         raise ValueError(moe.impl)
 
@@ -112,7 +117,7 @@ def moe_ffn(x: torch.Tensor, p: Params, prefix: str,
     return out.to(dt), aux.to(torch.float32)
 
 
-def _dense_dispatch(x, p, prefix, cfg, top_w, top_ids):
+def _dense_dispatch(x, p, prefix, cfg, top_w, top_ids, ctx):
     """Every expert computed for every token, in expert order 0…E−1,
     each added into the carry in the compute dtype by its routing weight
     (zero for the experts a token did not pick): six kernels an expert,
@@ -127,7 +132,7 @@ def _dense_dispatch(x, p, prefix, cfg, top_w, top_ids):
                   comb.unbind(2))
     out = torch.zeros_like(x)
     for wg, wu, wd, comb_e in experts:
-        out.addcmul_(_glu(x, wg, wu, wd), comb_e)
+        out.addcmul_(_glu(x, wg, wu, wd, ctx), comb_e)
     return out
 
 
@@ -172,20 +177,54 @@ def _combine_group(y_flat, keep, src, order, wts, dt):
     return out
 
 
-def _dropping_dispatch(x, p, prefix, cfg, top_w, top_ids):
-    """GShard capacity dispatch over one token group: capacity
-    ``ceil(T·K/E·capacity_factor)`` per expert, the slots past it dropped
-    (their tokens keep the other experts' and the shared output)."""
+def _dp_groups(ctx) -> int:
+    """Number of data-parallel shards the token axis is split over."""
+    if ctx is None or ctx.mesh is None or ctx.profile is None:
+        return 1
+    rule = ctx.profile.rules.get("act_batch")
+    if rule is None:
+        return 1
+    axes = (rule,) if isinstance(rule, str) else rule
+    sizes = mesh_shape(ctx.mesh)
+    g = 1
+    for a in axes:
+        g *= sizes.get(a, 1)
+    return g
+
+
+def _dropping_dispatch(x, p, prefix, cfg, top_w, top_ids, ctx):
+    """GShard capacity dispatch, group-local: the batch splits into the
+    ``_dp_groups(ctx)`` data-parallel groups (one where B does not divide),
+    each group's T/G tokens are sorted into their own buffers of capacity
+    ``ceil(T/G·K/E·capacity_factor)`` per expert, the slots past it dropped
+    (their tokens keep the other experts' and the shared output).  The
+    expert products run once over every group's buffers."""
     moe = cfg.moe
     E, K = moe.num_experts, moe.experts_per_token
     B, S, D = x.shape
     dt = x.dtype
-    cap = capacity(B * S, moe)
-    buf, keep, src, order = _scatter_group(
-        x.reshape(B * S, D), top_ids.reshape(B * S, K), E, K, cap, dt)
+    G = _dp_groups(ctx)
+    if B % G or (B // G) == 0:
+        G = 1  # ragged batch: fall back to one global group
+    t_loc = B * S // G
+    cap = capacity(t_loc, moe)
+    xg = ctx.constrain(x.reshape(G, t_loc, D), ("act_batch", None, None))
+    idsg = top_ids.reshape(G, t_loc, K)
+    wtsg = top_w.reshape(G, t_loc, K)
+    groups = [_scatter_group(xg[g], idsg[g], E, K, cap, dt) for g in range(G)]
+    buf = ctx.constrain(torch.stack([gr[0] for gr in groups]),
+                        ("act_batch", None, None, None))  # (G, E, cap, D)
     wg, wu, wd = (p[f"{prefix}{n}"].to(dt)
                   for n in ("we_gate", "we_up", "we_down"))
-    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
-    y = torch.bmm(h, wd).reshape(E * cap, D)
-    out = _combine_group(y, keep, src, order, top_w.reshape(B * S, K), dt)
+    be = buf.transpose(0, 1).reshape(E, G * cap, D)  # every group, by expert
+    h = F.silu(torch.bmm(be, wg)) * torch.bmm(be, wu)
+    h = ctx.constrain(h.reshape(E, G, cap, -1).transpose(0, 1),
+                      ("act_batch", None, None, "act_ff"))
+    y = torch.bmm(h.transpose(0, 1).reshape(E, G * cap, -1), wd)
+    y = ctx.constrain(y.reshape(E, G, cap, D).transpose(0, 1),
+                      ("act_batch", None, None, None))
+    out = torch.stack([
+        _combine_group(y[g].reshape(E * cap, D), keep, src, order, wtsg[g], dt)
+        for g, (_, keep, src, order) in enumerate(groups)])
+    out = ctx.constrain(out, ("act_batch", None, None))
     return out.reshape(B, S, D)

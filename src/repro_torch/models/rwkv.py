@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models.common import (
     FlatParamsLM,
     ParamSpec,
@@ -229,7 +230,7 @@ class RWKVLM(FlatParamsLM):
                               self.cfg.num_heads)
         return x + (y * F.silu(g)) @ p["wo"].to(x.dtype)
 
-    def _time_mix_full(self, p, x, S0=None):
+    def _time_mix_full(self, p, x, ctx, S0=None):
         """Returns (x + time mix, final state, shift state: the last normed
         input, for decode)."""
         h = rms_norm(x, p["ln1"], self.cfg.norm_eps)
@@ -239,61 +240,66 @@ class RWKVLM(FlatParamsLM):
         return self._tmix_out(p, x, y, g), S_fin, h[:, -1]
 
     # ------------------------------------------------------------ channel mix
-    def _channel_mix(self, p, h, h_prev):
+    def _channel_mix(self, p, h, h_prev, ctx=NULL_CTX):
         dt = h.dtype
         xk = h + (h_prev - h) * p["cm_mu_k"].to(dt)
         xr = h + (h_prev - h) * p["cm_mu_r"].to(dt)
         kk = torch.square(torch.relu(xk @ p["cm_wk"].to(dt)))
+        kk = ctx.constrain(kk, ("act_batch", None, "act_ff"))
         vv = kk @ p["cm_wv"].to(dt)
         rr = torch.sigmoid(xr @ p["cm_wr"].to(dt))
         return rr * vv
 
-    def _channel_mix_full(self, p, x):
+    def _channel_mix_full(self, p, x, ctx):
         """Returns (x + channel mix, shift state)."""
         h = rms_norm(x, p["ln2"], self.cfg.norm_eps)
-        return x + self._channel_mix(p, h, _shift(h)), h[:, -1]
+        x = x + self._channel_mix(p, h, _shift(h), ctx)
+        return ctx.constrain(x, ("act_batch", "act_seq", "act_embed")), h[:, -1]
 
-    def _layer_loss(self, p, x):
+    def _layer_loss(self, p, x, ctx):
         """One layer's time and channel mix, without the states."""
-        x = self._time_mix_full(p, x)[0]
-        return self._channel_mix_full(p, x)[0]
+        x = self._time_mix_full(p, x, ctx)[0]
+        return self._channel_mix_full(p, x, ctx)[0]
 
     # ------------------------------------------------------------------ modes
-    def _forward_full(self, params, tokens, want_state: bool):
-        x = self._embed(params, tokens)
+    def _forward_full(self, params, tokens, ctx, want_state: bool):
+        x = ctx.constrain(self._embed(params, tokens),
+                          ("act_batch", "act_seq", "act_embed"))
         states = []
         for i in range(self.cfg.num_layers):
             p_l = self._layer(params, i)
             if not want_state:  # the loss path: remat, as ``repro``
-                x = remat(self.cfg, self._layer_loss, p_l, x)
+                x = remat(self.cfg, self._layer_loss, p_l, x, ctx)
                 continue
-            x, S_fin, sh_t = self._time_mix_full(p_l, x)
-            x, sh_c = self._channel_mix_full(p_l, x)
+            x, S_fin, sh_t = self._time_mix_full(p_l, x, ctx)
+            x, sh_c = self._channel_mix_full(p_l, x, ctx)
             states.append((S_fin, sh_t, sh_c))
         if not want_state:
             return x, None
         return x, tuple(torch.stack(s) for s in zip(*states))
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardingCtx = NULL_CTX):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (label -1 is ignored); returns (loss, {"ce",
         "aux"}), aux zero."""
         cfg = self.cfg
-        x, _ = self._forward_full(params, batch["tokens"], False)
+        x, _ = self._forward_full(params, batch["tokens"], ctx, False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = x @ params["lm_head"].to(x.dtype)
+        logits = ctx.constrain(x @ params["lm_head"].to(x.dtype),
+                               ("act_batch", "act_seq", "act_vocab"))
         labels = torch.as_tensor(batch["labels"], device=x.device)
         ce = next_token_ce(logits, labels)
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
 
     forward = loss
 
-    def prefill(self, params, batch, capacity: Optional[int] = None):
+    def prefill(self, params, batch, ctx: ShardingCtx = NULL_CTX,
+                capacity: Optional[int] = None):
         """Returns (last-position logits (B, V), state).  ``capacity`` is
         ignored: the state is O(1) in the sequence length."""
         cfg = self.cfg
         x, (S_fin, sh_t, sh_c) = self._forward_full(params, batch["tokens"],
-                                                    True)
+                                                    ctx, True)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = (x @ params["lm_head"].to(x.dtype))[:, 0]
         return logits, {"wkv": S_fin, "shift_t": sh_t, "shift_c": sh_c}
@@ -310,7 +316,7 @@ class RWKVLM(FlatParamsLM):
             "shift_c": TensorSpec((L, batch, d), dt),
         }
 
-    def decode(self, params, tokens, cache, t):
+    def decode(self, params, tokens, cache, t, ctx: ShardingCtx = NULL_CTX):
         """tokens: (B, 1); ``t`` unused (the state carries the position).
         Returns (logits, state)."""
         cfg = self.cfg

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models.common import ParamSpec, _pad_seq, acc_dtype, rms_norm
 
 # the Mamba block's weights ``repro`` reads in float32 (``rms_norm``'s
@@ -134,7 +135,8 @@ def ssd_decode_step(
     return y.to(x.dtype), h_new
 
 
-def mamba_scan_inputs(p, x: torch.Tensor, cfg: ModelConfig):
+def mamba_scan_inputs(p, x: torch.Tensor, cfg: ModelConfig,
+                      ctx: ShardingCtx = NULL_CTX):
     """The block's input side over a sequence x (B, S, d): returns
     (z, xh, dt, A, Bm, Cm), ``xh`` (B, S, nh, hp) the conv's output by
     head and ``dt``, ``A`` in float32 (float64 for a float64 model)."""
@@ -142,7 +144,7 @@ def mamba_scan_inputs(p, x: torch.Tensor, cfg: ModelConfig):
     dt_, at = x.dtype, acc_dtype(x.dtype)
     h = rms_norm(x, p["m_norm"], cfg.norm_eps)
     z = h @ p["wz"].to(dt_)
-    xin = h @ p["wx"].to(dt_)
+    xin = ctx.constrain(h @ p["wx"].to(dt_), ("act_batch", None, "act_ff"))
     xc = F.silu(causal_depthwise_conv(xin, p["conv_w"].to(dt_)))
     Bm = h @ p["wB"].to(dt_)
     Cm = h @ p["wC"].to(dt_)
@@ -152,11 +154,12 @@ def mamba_scan_inputs(p, x: torch.Tensor, cfg: ModelConfig):
     return z, xh, dt, A, Bm, Cm
 
 
-def mamba_block_full(p, x: torch.Tensor, cfg: ModelConfig, h0=None):
+def mamba_block_full(p, x: torch.Tensor, cfg: ModelConfig,
+                     ctx: ShardingCtx = NULL_CTX, h0=None):
     """Full-sequence Mamba2 block.  x: (B, S, d).  Returns (out,
     final_state)."""
     dt_ = x.dtype
-    z, xh, dt, A, Bm, Cm = mamba_scan_inputs(p, x, cfg)
+    z, xh, dt, A, Bm, Cm = mamba_scan_inputs(p, x, cfg, ctx)
     y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, h0)
     y = y + p["D_skip"].to(dt_)[None, None, :, None] * xh
     y = y.reshape(*z.shape) * F.silu(z)
@@ -164,7 +167,8 @@ def mamba_block_full(p, x: torch.Tensor, cfg: ModelConfig, h0=None):
 
 
 def mamba_block_decode(p, x: torch.Tensor, cfg: ModelConfig,
-                       conv_state: torch.Tensor, ssm_state: torch.Tensor):
+                       conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                       ctx: ShardingCtx = NULL_CTX):
     """Single-token Mamba2 step.  x: (B, 1, d).
 
     conv_state: (B, k-1, dI) trailing inputs; ssm_state: (B, nh, hp, N)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     FlatParamsLM,
@@ -131,7 +132,7 @@ class DecoderLM(FlatParamsLM):
     def _layer(self, params: Params, i: int) -> Params:
         return {n: params[n][i] for n in self._layer_names()}
 
-    def _attn_proj_qkv(self, p, h, pos):
+    def _attn_proj_qkv(self, p, h, pos, ctx):
         cfg = self.cfg
         dt = h.dtype
         B, S, d = h.shape
@@ -146,6 +147,9 @@ class DecoderLM(FlatParamsLM):
             v = v + p["bv"].to(dt)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+        q = ctx.constrain(q, ("act_batch", None, "act_heads", None))
+        k = ctx.constrain(k, ("act_batch", None, "cache_heads", None))
+        v = ctx.constrain(v, ("act_batch", None, "cache_heads", None))
         return q, k, v
 
     def _attn_out(self, p, attn, dt):
@@ -153,60 +157,65 @@ class DecoderLM(FlatParamsLM):
         wo = p["wo"].to(dt)
         return attn.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
-    def _mlp(self, p, h):
+    def _mlp(self, p, h, ctx):
         """Returns (output, router aux term or None for a dense MLP)."""
         cfg = self.cfg
         if cfg.moe is not None:
-            return moe_lib.moe_ffn(h, p, "", cfg)
-        return glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"], cfg.mlp_act), None
+            return moe_lib.moe_ffn(h, p, "", cfg, ctx)
+        return glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"], cfg.mlp_act,
+                       ctx), None
 
-    def _layer_full(self, p, x, pos):
+    def _layer_full(self, p, x, pos, ctx):
         """Full-sequence layer (train / prefill). Returns (x, (k, v), aux)."""
         cfg = self.cfg
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = self._attn_proj_qkv(p, h, pos)
+        q, k, v = self._attn_proj_qkv(p, h, pos, ctx)
         attn = blockwise_attention(
             q, k, v, pos, pos,
             causal=True, window=cfg.window, chunk=cfg.attn_chunk,
         )
         x = x + self._attn_out(p, attn, x.dtype)
+        x = ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
         h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-        mlp_out, aux = self._mlp(p, h2)
-        return x + mlp_out, (k, v), aux
+        mlp_out, aux = self._mlp(p, h2, ctx)
+        x = ctx.constrain(x + mlp_out, ("act_batch", "act_seq", "act_embed"))
+        return x, (k, v), aux
 
-    def _layer_loss(self, p, x, pos):
+    def _layer_loss(self, p, x, pos, ctx):
         """``_layer_full`` without the K / V: (x, aux)."""
-        x, _, aux = self._layer_full(p, x, pos)
+        x, _, aux = self._layer_full(p, x, pos, ctx)
         return x, aux
 
-    def _layer_decode(self, p, x, cache_k, cache_v, cache_pos, t):
+    def _layer_decode(self, p, x, cache_k, cache_v, cache_pos, t, ctx):
         """Single-token layer. x: (B,1,D). Returns (x, new_k, new_v, pos)."""
         cfg = self.cfg
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         pos_q = t[:, None]  # (B,1)
-        q, k, v = self._attn_proj_qkv(p, h, pos_q)
+        q, k, v = self._attn_proj_qkv(p, h, pos_q, ctx)
         ck, cv, cp = cache_update(cache_k, cache_v, cache_pos, k, v, t)
+        ck = ctx.constrain(ck, ("cache_batch", "cache_seq", "cache_heads", None))
+        cv = ctx.constrain(cv, ("cache_batch", "cache_seq", "cache_heads", None))
         attn = decode_attention(q, ck, cv, pos_q, cp, window=cfg.window)
         x = x + self._attn_out(p, attn, x.dtype)
         h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
-        return x + self._mlp(p, h2)[0], ck, cv, cp
+        return x + self._mlp(p, h2, ctx)[0], ck, cv, cp
 
     # ------------------------------------------------------------- embeddings
-    def _embed_tokens(self, params, tokens):
+    def _embed_tokens(self, params, tokens, ctx):
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
         emb = params["tok_embed"].to(dt)
         x = emb[torch.as_tensor(tokens).to(emb.device).long()]
         if cfg.tie_embeddings:  # gemma-style embed scaling
             x = x * scalar_in(np.sqrt(cfg.d_model), dt)
-        return x
+        return ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
 
-    def _assemble_input(self, params, batch):
+    def _assemble_input(self, params, batch, ctx):
         """Token embeds, with the VLM patch prefix when the batch has
         ``patches``.  Returns (x, labels), the labels (if any) padded with
         -1 on the patch positions."""
         cfg = self.cfg
-        x = self._embed_tokens(params, batch["tokens"])
+        x = self._embed_tokens(params, batch["tokens"], ctx)
         labels = batch.get("labels")
         if labels is not None:
             labels = torch.as_tensor(labels, device=x.device)
@@ -222,17 +231,17 @@ class DecoderLM(FlatParamsLM):
                 labels = torch.cat([pad, labels], dim=1)
         return x, labels
 
-    def _logits(self, params, x):
+    def _logits(self, params, x, ctx):
         dt = x.dtype
         head = (
             params["tok_embed"].to(dt).T
             if self.cfg.tie_embeddings
             else params["lm_head"].to(dt)
         )
-        return x @ head
+        return ctx.constrain(x @ head, ("act_batch", "act_seq", "act_vocab"))
 
     # ------------------------------------------------------------------ modes
-    def _stack_full(self, params, x, pos, collect_kv: bool):
+    def _stack_full(self, params, x, pos, ctx, collect_kv: bool):
         """Returns (x, (ks, vs) or None, the layers' summed router aux
         term, or None for the dense family)."""
         S = x.shape[1]
@@ -242,9 +251,10 @@ class DecoderLM(FlatParamsLM):
         for i in range(self.cfg.num_layers):
             p_l = self._layer(params, i)
             if not collect_kv:  # the loss path: remat, as ``repro``
-                x, aux_l = remat(self.cfg, self._layer_loss, p_l, x, pos)
+                x, aux_l = remat(self.cfg, self._layer_loss, p_l, x, pos,
+                                 ctx)
             else:
-                x, (k, v), aux_l = self._layer_full(p_l, x, pos)
+                x, (k, v), aux_l = self._layer_full(p_l, x, pos, ctx)
             if aux_l is not None:
                 aux = aux_l if aux is None else aux + aux_l
             if collect_kv:
@@ -257,19 +267,19 @@ class DecoderLM(FlatParamsLM):
     def _positions(B: int, S: int, device) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx: ShardingCtx = NULL_CTX):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (label -1 is ignored), plus the MoE family's
         ``router_aux_coef`` times the layers' summed router aux term;
         returns (loss, {"ce", "aux"})."""
         cfg = self.cfg
-        x, labels = self._assemble_input(params, batch)
+        x, labels = self._assemble_input(params, batch, ctx)
         B, S, _ = x.shape
         x, _, aux = self._stack_full(params, x,
-                                     self._positions(B, S, x.device),
+                                     self._positions(B, S, x.device), ctx,
                                      collect_kv=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self._logits(params, x)
+        logits = self._logits(params, x, ctx)
         ce = next_token_ce(logits, labels)
         if aux is None:
             return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
@@ -277,17 +287,18 @@ class DecoderLM(FlatParamsLM):
 
     forward = loss
 
-    def prefill(self, params, batch, capacity: Optional[int] = None):
+    def prefill(self, params, batch, ctx: ShardingCtx = NULL_CTX,
+                capacity: Optional[int] = None):
         """capacity: total positions the cache must hold (prompt + planned
         new tokens); defaults to the prompt length.  Returns (last-position
         logits (B, V), cache)."""
         cfg = self.cfg
-        x, _ = self._assemble_input(params, batch)
+        x, _ = self._assemble_input(params, batch, ctx)
         B, S, _ = x.shape
         pos = self._positions(B, S, x.device)
-        x, (ks, vs), _ = self._stack_full(params, x, pos, collect_kv=True)
+        x, (ks, vs), _ = self._stack_full(params, x, pos, ctx, collect_kv=True)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-        logits = self._logits(params, x)[:, 0]
+        logits = self._logits(params, x, ctx)[:, 0]
         return logits, self._cache_from_prefill(ks, vs, pos, S, capacity)
 
     def _cache_from_prefill(self, ks, vs, pos, S, capacity=None):
@@ -327,19 +338,19 @@ class DecoderLM(FlatParamsLM):
         )
         return {"k": kv, "v": kv, "pos": TensorSpec((batch, C), torch.int32)}
 
-    def decode(self, params, tokens, cache, t):
+    def decode(self, params, tokens, cache, t, ctx: ShardingCtx = NULL_CTX):
         """tokens: (B,1); t: (B,) current position. Returns (logits, cache)."""
         cfg = self.cfg
-        x = self._embed_tokens(params, tokens)
+        x = self._embed_tokens(params, tokens, ctx)
         cache_pos = cache["pos"]
         ks, vs = [], []
         for i in range(cfg.num_layers):
             x, ck, cv, cache_pos = self._layer_decode(
                 self._layer(params, i), x, cache["k"][i], cache["v"][i],
-                cache_pos, t)
+                cache_pos, t, ctx)
             ks.append(ck)
             vs.append(cv)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self._logits(params, x)[:, 0]
+        logits = self._logits(params, x, ctx)[:, 0]
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
                         "pos": cache_pos}

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models.model import build_model
 from repro_torch.obs import LATENCY_BUCKETS, get_registry, get_tracer, span
 
@@ -55,11 +56,14 @@ def _sync(device: torch.device) -> None:
 
 
 class ServeEngine:
-    """``ServeEngine(cfg, params, device=)``: ``params`` is the model's
-    parameter dict (tensors or numpy arrays), moved to ``device``."""
+    """``ServeEngine(cfg, params, ctx, device=)``: ``params`` is the model's
+    parameter dict (tensors or numpy arrays), moved to ``device``; ``ctx``
+    the sharding context prefill and decode run under."""
 
-    def __init__(self, cfg: ModelConfig, params, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, params, ctx: ShardingCtx = NULL_CTX,
+                 *, device="cuda"):
         self.cfg = cfg
+        self.ctx = ctx
         self.device = torch.device(device)
         self.model = build_model(cfg)
         self.params = {n: torch.as_tensor(p, device=self.device)
@@ -97,7 +101,7 @@ class ServeEngine:
             t_start = time.perf_counter()
             with span("serve.prefill", batch=B, prompt_len=prompt_len):
                 logits, cache = self.model.prefill(
-                    self.compute_params, {"tokens": tokens},
+                    self.compute_params, {"tokens": tokens}, self.ctx,
                     capacity=prompt_len + max_new_tokens,
                 )
                 if tracing:  # sync only when the span is real
@@ -132,7 +136,8 @@ class ServeEngine:
                     # the final decode always runs so logits_last is the
                     # post-last-token distribution on every path
                     logits, cache = self.model.decode(
-                        self.compute_params, tok[:, None], cache, t + i)
+                        self.compute_params, tok[:, None], cache, t + i,
+                        self.ctx)
                     steps = i + 1
                     if done.all():
                         break

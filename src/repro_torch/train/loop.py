@@ -10,14 +10,29 @@ splits every batch leaf into that many row slices and accumulates the
 gradients over them, scaled by ``1/M``: the activations then scale with
 the microbatch, not the global batch.  A batch may be NumPy arrays; the
 step moves it to the parameters' device.
+
+Under a sharding context whose mesh spans the batch (``act_batch``'s mesh
+axes, resolved for the microbatch's rows as ``repro``'s GSPMD would shard
+them), every rank takes its contiguous row shard of each microbatch (the
+layout ``P(("pod", "data"))`` gives), computes its gradients, and the
+float32 gradients, the loss and the metrics are averaged over those ranks
+(an all-reduce per mesh axis) before ``grad_transform`` and the update: the
+batch-sharded step of ``repro``, within float32 reduction order.  The
+model then runs under the context without those axes in ``act_batch``
+(``_local_ctx``): each rank's rows are one data-parallel shard.  Off a
+mesh the step is the single-process one, bit for bit.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import (
+    NULL_CTX, ShardingCtx, mesh_shape, resolve_axes,
+)
 from repro_torch.models.common import acc_dtype, torch_dtype
 from repro_torch.models.transformer import TensorSpec
 from repro_torch.obs import LATENCY_BUCKETS, get_registry, get_tracer
@@ -59,18 +74,79 @@ def _to_device(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def batch_axes(ctx: ShardingCtx, rows: int) -> Tuple[str, ...]:
+    """The mesh axes a batch of ``rows`` rows is sharded over under
+    ``ctx`` (none off a mesh, or where the rows do not divide)."""
+    if ctx.mesh is None or ctx.profile is None:
+        return ()
+    entry = resolve_axes(ctx.mesh, ("act_batch",), (rows,), ctx.profile)[0]
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _shard_rows(batch, mesh, axes, M: int):
+    """This rank's rows: its contiguous 1/D of each of the M microbatches,
+    D the product of ``axes``' sizes and the rank's index its row-major
+    coordinate over them."""
+    sizes = mesh_shape(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    d, D = 0, 1
+    for a in axes:
+        d, D = d * sizes[a] + coord[a], D * sizes[a]
+    rows = next(iter(batch.values())).shape[0]
+    size = rows // M
+    part = size // D
+    keep = [i * size + d * part + j for i in range(M) for j in range(part)]
+    idx = torch.as_tensor(keep, device=next(iter(batch.values())).device)
+    return {k: v.index_select(0, idx) for k, v in batch.items()}
+
+
+def _local_ctx(ctx: ShardingCtx, axes) -> ShardingCtx:
+    """The context a rank's model runs under once the step has split the
+    batch over ``axes``: ``act_batch`` without them, so the rank's rows
+    count as one data-parallel shard (the MoE dropping dispatch groups
+    tokens by the shards left to split).  Its fallbacks go to ``ctx``'s
+    list."""
+    rule = ctx.profile.rules.get("act_batch")
+    rule = (rule,) if isinstance(rule, str) else tuple(rule)
+    rest = tuple(a for a in rule if a not in axes)
+    local = ShardingCtx(ctx.mesh, ctx.profile.override(act_batch=rest or None))
+    local.fallbacks = ctx.fallbacks
+    return local
+
+
+def _mean_over(mesh, axes, tensors: Dict[str, torch.Tensor]):
+    """Each tensor's mean over the ranks of ``axes``: one all-reduce per
+    axis on a copy (a loss and its metrics may share storage), in name
+    order, then divided by the rank count."""
+    D = 1
+    for a in axes:
+        D *= mesh_shape(mesh)[a]
+    out = {}
+    for n in sorted(tensors):
+        t = tensors[n].clone()
+        for a in axes:
+            dist.all_reduce(t, group=mesh.get_group(a))
+        out[n] = t / D
+    return out
+
+
 def make_train_step(model, optim: Optimizer, *, num_microbatches: int = 1,
+                    ctx: ShardingCtx = NULL_CTX,
                     grad_transform: Optional[Callable] = None):
     """``train_step(state, batch) -> (state, metrics)``; the metrics
     (``loss``, ``grad_norm`` and the model's own) are float32 scalars on
-    the parameters' device.  ``grad_transform(grads) -> grads`` runs
-    between the gradients and the update."""
+    the parameters' device.  ``ctx`` is passed to ``model.loss``; where its
+    mesh spans the batch the step is data-parallel (module docstring).
+    ``grad_transform(grads) -> grads`` runs between the gradients and the
+    update."""
     M = num_microbatches
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, ctx):
         leaves = {n: p.detach().requires_grad_(True)
                   for n, p in params.items()}
-        loss, metrics = model.loss(leaves, batch)
+        loss, metrics = model.loss(leaves, batch, ctx)
         gs = torch.autograd.grad(loss, list(leaves.values()),
                                  allow_unused=True)
         grads = {n: torch.zeros_like(p, dtype=acc_dtype(p.dtype)) if g is None
@@ -79,9 +155,9 @@ def make_train_step(model, optim: Optimizer, *, num_microbatches: int = 1,
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, grads
 
-    def compute_grads(params, batch):
+    def compute_grads(params, batch, ctx):
         if M == 1:
-            return grads_of(params, batch)
+            return grads_of(params, batch, ctx)
         rows = next(iter(batch.values())).shape[0]
         if rows % M:
             raise ValueError(f"batch of {rows} rows does not split into "
@@ -92,7 +168,7 @@ def make_train_step(model, optim: Optimizer, *, num_microbatches: int = 1,
         grads = None
         for i in range(M):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            loss_i, _, g = grads_of(params, mb)
+            loss_i, _, g = grads_of(params, mb, ctx)
             loss = loss + loss_i
             if grads is None:
                 grads = g
@@ -108,7 +184,16 @@ def make_train_step(model, optim: Optimizer, *, num_microbatches: int = 1,
     def train_step(state, batch):
         params = state["params"]
         batch = _to_device(batch, next(iter(params.values())).device)
-        loss, metrics, grads = compute_grads(params, batch)
+        rows = next(iter(batch.values())).shape[0]
+        axes = batch_axes(ctx, rows // M) if rows % M == 0 else ()
+        if axes:
+            batch = _shard_rows(batch, ctx.mesh, axes, M)
+        loss, metrics, grads = compute_grads(
+            params, batch, _local_ctx(ctx, axes) if axes else ctx)
+        if axes:
+            loss = _mean_over(ctx.mesh, axes, {"": loss})[""]
+            metrics = _mean_over(ctx.mesh, axes, metrics)
+            grads = _mean_over(ctx.mesh, axes, grads)
         if grad_transform is not None:
             grads = grad_transform(grads)
         with torch.no_grad():

@@ -157,7 +157,7 @@ def test_checkpoints_cross_packages_and_restore_elastic(tmp_path):
     jm.save(4, {"params": {"w": jnp.full((3, 2), 1.5)},
                 "opt": {"step": jnp.asarray(4, jnp.int32)}},
             {"next_step": 4}, blocking=True)
-    state, extra = restore_elastic(str(tmp_path / "j"), device="cpu")
+    state, extra = restore_elastic(str(tmp_path / "j"), "cpu")
     assert extra == {"next_step": 4}
     assert isinstance(state["params"]["w"], torch.Tensor)
     assert state["opt"]["step"].dtype == torch.int32
