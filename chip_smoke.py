@@ -158,8 +158,24 @@ Run from the root of a checkout:
    within 1e-6 of the 1-rank loss and rtol 2e-3 / atol 2e-5 of its
    parameters.  Reports recall@10, QPS, the merge's share of a step, each
    rank's peak allocation and graph build seconds.
+16. Dry-run phase (no kernel of the port is on this path: the JAX
+   package's dry run reaches no Pallas kernel).  (a) In parallel
+   subprocesses, ``python -m repro_torch.launch.dryrun`` for gate-anns
+   search_1b and search_rag and gemma-2b decode_32k on the 16x16 mesh of
+   a fake 256-rank process group (fake tensors on the card's device):
+   each exits 0 with ``ok``; its argument bytes a device equal the hand
+   count of the rank's shards; a gate cell's collective bytes equal
+   mesh_all_gather's per-dimension gathers of its (B, k) ids and
+   distances; useful_ratio <= 1; every row fits 80 GiB; the roofline rows
+   are printed.  (b) Phase 15's own step priced on a (2, 2) fake mesh at
+   phase 15's shapes (250,000 x 128 float32 rows a rank, R 16, 10,000
+   queries, beam 64, 128 hops, k 10): phase 15's measured median step
+   must not beat 4x the per-rank roofline bound (four ranks share the
+   card).  (c) The card's bf16 torch.matmul rate at 8192^3 and a 4 GiB
+   device copy's bytes a second, beside the roofline's constants; a
+   reading over 105% of a constant fails.
 
-Phases 3, 5-6 and 8-15 are each driven with the kernel launch counts set
+Phases 3, 5-6 and 8-16 are each driven with the kernel launch counts set
 to 0 just before and read just after.  Each phase's kernel-launch
 requirement:
    phase 3        K4 (topk_min), K5 (l2dist), K6 (gather_dist)
@@ -170,6 +186,7 @@ requirement:
    phase 10       K1, K3, greedy_assign
    phases 11-13   K1, K3
    phases 14-15   none (their counts are logged)
+   phase 16       none (its counts are logged)
 Every check that fails raises, so the script exits non-zero and prints no
 result.  The last line is the JSON result object; the line before it is
 the card's name and power limit, and the one before that lists every
@@ -3220,6 +3237,232 @@ def _partition_gates(np, ranks, want_ids, want_d, n, gt) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dry-run tooling
+# ---------------------------------------------------------------------------
+
+# production cells dry-run on the 16x16 fake mesh, one subprocess each
+DRYRUN_CELLS = (("gate-anns", "search_1b"), ("gate-anns", "search_rag"),
+                ("gemma-2b", "decode_32k"))
+# phase 15's step as one rank of its (2, 2) mesh runs it
+PHASE15_CELL = dict(rows=250_000, d=128, R=PART_R, hubs=16, batch=10_000,
+                    **PART_KNOBS)
+RATE_SHAPES = dict(matmul=8192, copy_bytes=4 << 30)
+DRYRUN_TIMEOUT_S = 300
+
+PHASE15_PRICING = """
+import dataclasses, json, sys, torch
+from repro_torch.core.distributed import (
+    gate_shardings, make_search_step, sharded_gate_specs)
+from repro_torch.core.twotower import TwoTowerConfig
+from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.launch.cells import Cell, lower_cell
+from repro_torch.launch.dryrun import init_fake_world
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.roofline import roofline_row
+from repro_torch.models.common import TensorSpec
+c, dev = json.loads(sys.argv[1]), sys.argv[2]
+init_fake_world(4)
+mesh = make_host_mesh((2, 2), ("data", "model"), device=dev)
+tcfg = TwoTowerConfig(d_p=c["d"])
+step = make_search_step(mesh, tcfg, beam_width=c["beam_width"],
+                        max_hops=c["max_hops"], k=c["k"])
+specs = sharded_gate_specs(mesh, tcfg, n_total=4 * c["rows"], d=c["d"],
+                           R=c["R"], hubs_per_shard=c["hubs"],
+                           dtype=torch.float32)
+sh = gate_shardings(mesh)
+cell = Cell(name="phase15", fn=step,
+            args=(specs, TensorSpec((c["batch"], c["d"]), torch.float32)),
+            in_shardings=(sh, sh.tower_params), out_shardings=None,
+            donate_argnums=(), fallbacks=[], ctx=ShardingCtx(), local=True)
+tr = lower_cell(cell)
+rec = {"arch": "phase15", "shape": "step", "mesh": "2x2", "n_devices": 4,
+       "model_flops": 0.0, "hlo": tr.cost_analysis(),
+       **dataclasses.asdict(tr.memory_analysis())}
+print("JSON", json.dumps(roofline_row(rec)))
+"""
+
+
+def _dryrun_env():
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def gemma_decode_arg_bytes(cfg, batch: int, seq: int, data: int = 16,
+                           model: int = 16) -> int:
+    """gemma-2b's decode cell's argument bytes a device on the (data,
+    model) mesh, by hand from the decode profile: the embedding over vocab
+    x embed, the MLP over embed x ff, the attention over embed only (8
+    heads do not divide 16: replicated), norms whole; the tokens and ``t``
+    over the batch; the cache over batch x sequence."""
+    L, d, H, Hkv, hd, ff, V = (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                               cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
+                               cfg.vocab_size)
+    f32 = 4
+    params = (V * d / (data * model) + d + 2 * L * d
+              + L * d * (H + 2 * Hkv) * hd / data + L * H * hd * d / data
+              + 3 * L * d * ff / (data * model)) * f32
+    cache = 2 * L * batch * seq * Hkv * hd * 2 / (data * model)
+    return int(params + cache + batch * seq * 4 / (data * model)
+               + 2 * batch * 4 / data)
+
+
+def gate_arg_bytes(shape, n_devices: int = 256) -> int:
+    """A gate cell's argument bytes a device: the rank's rows (bf16), norms,
+    graph, 64 hubs and their ids, its offset; the query tower's four
+    leaves (the hub tower is never read); the queries (bf16)."""
+    n, d = shape.n_total // n_devices, shape.d
+    shard = n * d * 2 + n * 4 + n * shape.R * 4 + 64 * 128 * 4 + 64 * 4 + 4
+    tower = (d * 256 + 256 + 256 * 128 + 128) * 4
+    return shard + tower + shape.batch * d * 2
+
+
+def matmul_and_copy_rates(torch, dev, shapes=None) -> dict:
+    """The card's achieved dense bf16 ``torch.matmul`` rate at n³ and one
+    device copy's bytes a second (read and write), medians of CUDA-event
+    pairs."""
+    shapes = shapes or RATE_SHAPES
+    n = shapes["matmul"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(n, n, device=dev, dtype=torch.bfloat16, generator=g)
+    b = torch.randn(n, n, device=dev, dtype=torch.bfloat16, generator=g)
+    mm_ms = cuda_ms(torch, lambda i: torch.matmul(a, b), reps=10)
+    del a, b
+    src = torch.empty(shapes["copy_bytes"], dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    cp_ms = cuda_ms(torch, lambda i: dst.copy_(src), reps=10)
+    del src, dst
+    return {"matmul_n": n, "matmul_ms": mm_ms,
+            "matmul_flops_per_s": 2.0 * n ** 3 / (mm_ms * 1e-3),
+            "copy_bytes": shapes["copy_bytes"], "copy_ms": cp_ms,
+            "copy_bytes_per_s": 2.0 * shapes["copy_bytes"] / (cp_ms * 1e-3)}
+
+
+def dryrun_phase(torch, np, dev, phase15_step_s: float,
+                 cells=DRYRUN_CELLS, p15=PHASE15_CELL) -> dict:
+    """Phase 16: (a) ``python -m repro_torch.launch.dryrun`` for each of
+    ``cells`` on the 16x16 fake mesh (fake tensors on ``dev``'s type), in
+    parallel subprocesses: every one exits 0 with ``ok``, its argument
+    bytes a device equal the hand count, a gate cell's collective bytes
+    equal ``mesh_all_gather``'s per-dimension gathers of its (B, k) ids and
+    distances, useful_ratio <= 1 and every row fits 80 GiB; the roofline
+    rows are printed.  (b) Beside them, phase 15's own step priced on a
+    (2, 2) fake mesh at phase 15's shapes: ``phase15_step_s`` (the
+    slowest rank's median) must not beat 4x the per-rank bound (four
+    ranks share the card).  (c) The card's bf16 matmul and copy rates
+    beside the roofline's constants; a reading over 105% of a constant
+    fails."""
+    from repro_torch.launch import gate_cell, roofline
+    from repro_torch.configs import get_config, SHAPES
+
+    t_phase = time.perf_counter()
+    env = _dryrun_env()
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="phase16-", dir=ROOT / "build"))
+    procs = {}
+    try:
+        for arch, shape in cells:
+            procs[(arch, shape)] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--out", str(out_dir),
+                 "--device", dev.type],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=ROOT)
+        procs["phase15"] = subprocess.Popen(
+            [sys.executable, "-c", PHASE15_PRICING, json.dumps(p15),
+             dev.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=ROOT)
+        # (c) on the card while the dry runs keep the host busy
+        rates = (matmul_and_copy_rates(torch, dev) if dev.type == "cuda"
+                 else None)
+        done = {}
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        for key, p in procs.items():
+            so, se = p.communicate(timeout=max(deadline - time.monotonic(),
+                                               1.0))
+            require(p.returncode == 0,
+                    f"phase 16: {key} exited {p.returncode}:\n"
+                    f"{so[-3000:]}\n{se[-3000:]}")
+            done[key] = so
+        records = {c: json.loads((out_dir / f"{c[0]}__{c[1]}__16x16.json")
+                                 .read_text()) for c in cells}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    dryrun_s = time.perf_counter() - t_phase
+
+    rows = []
+    checks = {}
+    for (arch, shape), rec in records.items():
+        require(rec.get("ok") and not rec.get("skipped"),
+                f"phase 16: {arch} {shape} not ok: {rec.get('error')}")
+        row = roofline.roofline_row(rec)
+        rows.append(row)
+        if arch == "gate-anns":
+            gs = gate_cell.GATE_SHAPES[shape]
+            want_args = gate_arg_bytes(gs)
+            want_coll = 2 * (16 + 256) * gs.batch * gs.k * 4
+            require(rec["hlo"]["collective_bytes"] == want_coll,
+                    f"phase 16: {shape}'s collective bytes "
+                    f"{rec['hlo']['collective_bytes']} != {want_coll}")
+        else:
+            sp = SHAPES[shape]
+            want_args = gemma_decode_arg_bytes(get_config(arch),
+                                               sp.global_batch, sp.seq_len)
+        require(rec["argument_size_in_bytes"] == want_args,
+                f"phase 16: {arch} {shape}'s argument bytes "
+                f"{rec['argument_size_in_bytes']} != {want_args}")
+        require(0 < row["useful_ratio"] <= 1.0,
+                f"phase 16: {arch} {shape}'s useful ratio "
+                f"{row['useful_ratio']:.3g}")
+        require(row["fits_hbm"],
+                f"phase 16: {arch} {shape} needs {row['mem_gib_per_dev']:.1f}"
+                f" GiB a device")
+        checks[f"{arch}:{shape}"] = {
+            "argument_size_in_bytes": rec["argument_size_in_bytes"],
+            "total_s": rec["total_s"], "fallbacks": rec["fallbacks"],
+            "collectives": rec["hlo"]["collectives"]}
+    log("phase 16 roofline (16x16 fake mesh, H100 constants):\n"
+        + roofline.render_markdown(rows))
+
+    p15_row = json.loads([ln for ln in done["phase15"].splitlines()
+                          if ln.startswith("JSON ")][-1][5:])
+    per_rank = max(p15_row["compute_s"], p15_row["memory_s"],
+                   p15_row["collective_s"])
+    log(f"phase 16: phase 15's step {phase15_step_s * 1e3:.2f} ms against "
+        f"4 x its per-rank bound {4 * per_rank * 1e3:.3f} ms "
+        f"({p15_row['dominant']}-bound)")
+    require(phase15_step_s >= 4 * per_rank,
+            "phase 16: phase 15's measured step beats 4x its roofline "
+            "bound: the analysis counts work the step does not do")
+
+    if rates is not None:
+        log(f"phase 16: bf16 matmul {rates['matmul_flops_per_s'] / 1e12:.1f}"
+            f" TFLOP/s against {roofline.PEAK_FLOPS / 1e12:.0f}; copy "
+            f"{rates['copy_bytes_per_s'] / 1e9:.1f} GB/s against "
+            f"{roofline.HBM_BW / 1e9:.0f}")
+        require(rates["matmul_flops_per_s"] <= 1.05 * roofline.PEAK_FLOPS,
+                "phase 16: the matmul reads over 105% of the peak: its "
+                "timing is wrong")
+        require(rates["copy_bytes_per_s"] <= 1.05 * roofline.HBM_BW,
+                "phase 16: the copy reads over 105% of the HBM rate: its "
+                "timing is wrong")
+    return {"cells": checks, "roofline": rows, "phase15": {
+        "step_s": phase15_step_s, "per_rank_bound_s": per_rank,
+        "bound_x4_s": 4 * per_rank, "row": p15_row},
+        "rates": rates, "constants": {
+            "peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW,
+            "link_bw": roofline.LINK_BW, "hbm_gib": roofline.HBM_GIB},
+        "dryrun_s": dryrun_s, "seconds": time.perf_counter() - t_phase}
+
+
 CSRC = "src/repro_torch/csrc/"
 SOURCES = {"gather_rows_dist": CSRC + "gather_dist.cu",
            "gather_rows_dist_q8": CSRC + "gather_dist.cu",
@@ -3639,6 +3882,17 @@ def main(argv=None) -> int:
     log("phase 15: " + json.dumps(part))
     log(f"phase 15: {part['seconds']:.1f} s")
 
+    # 16. the dry-run tooling: production cells on a fake 256-rank mesh,
+    # phase 15's step priced, the card's rates; its own counts, which no
+    # kernel needs
+    K.reset_launch_counts()
+    dry = dryrun_phase(torch, np, dev,
+                       max(statistics.median(r) for r in part["step_s"]))
+    dry_launches = K.launch_counts()
+    log("launches on the dry-run path (none required): "
+        + json.dumps(dry_launches))
+    log(f"phase 16: {dry['seconds']:.1f} s")
+
     line = kernels_line(kres, api, hop, launches, serve_launches,
                         fb_launches, single, greedy, abl_launches,
                         rag_launches, moe_rag_launches, rec_rag_launches)
@@ -3663,6 +3917,7 @@ def main(argv=None) -> int:
         "recurrent_rag": rec_rag, "recurrent_rag_launches": rec_rag_launches,
         "train": train, "train_launches": train_launches,
         "partitioned": part, "partitioned_launches": part_launches,
+        "dryrun": dry, "dryrun_launches": dry_launches,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

@@ -16,7 +16,7 @@ its positions; its ``constrain`` never changes a value.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,14 @@ def acc_dtype(dt: torch.dtype) -> torch.dtype:
     """The dtype ``repro`` accumulates in, float32, or ``dt`` where that is
     wider (a float64 model stays float64 throughout)."""
     return torch.promote_types(dt, torch.float32)
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, allocating nothing (``repro``'s
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 @dataclass(frozen=True)
@@ -80,6 +88,14 @@ def init_params(table: Dict[str, ParamSpec], generator: torch.Generator,
             for n in sorted(table)}
 
 
+def param_shape_structs(table: Dict[str, ParamSpec],
+                        dtype) -> Dict[str, TensorSpec]:
+    """Every parameter's ``TensorSpec``: its shape, in its own dtype or
+    ``dtype``."""
+    return {n: TensorSpec(tuple(s.shape), torch_dtype(s.dtype or dtype))
+            for n, s in table.items()}
+
+
 def count_params(table: Dict[str, ParamSpec]) -> int:
     return sum(int(np.prod(s.shape)) for s in table.values())
 
@@ -100,6 +116,11 @@ class FlatParamsLM(nn.Module):
 
     def param_table(self) -> Dict[str, ParamSpec]:
         raise NotImplementedError
+
+    def param_specs(self) -> Dict[str, TensorSpec]:
+        """The parameters' ``TensorSpec``s in ``param_dtype``, allocating
+        nothing."""
+        return param_shape_structs(self.param_table(), self.cfg.param_dtype)
 
     def init(self, generator: torch.Generator, device=None) -> Params:
         """Random parameters from ``generator`` (on its device unless

@@ -125,7 +125,7 @@ def _dense_dispatch(x, p, prefix, cfg, top_w, top_ids, ctx):
     E = cfg.moe.num_experts
     dt = x.dtype
     combine = torch.zeros(top_ids.shape[:-1] + (E,), dtype=top_w.dtype,
-                          device=x.device).scatter_(-1, top_ids, top_w)
+                          device=x.device).scatter(-1, top_ids, top_w)
     comb = combine.to(dt)[..., None]  # (B, S, E, 1)
     experts = zip(*(p[f"{prefix}{n}"].to(dt).unbind(0)
                     for n in ("we_gate", "we_up", "we_down")),

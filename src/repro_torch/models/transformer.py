@@ -24,7 +24,7 @@ tokens.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ from repro_torch.models.common import (
     FlatParamsLM,
     ParamSpec,
     Params,
+    TensorSpec,
     apply_rope,
     blockwise_attention,
     cache_update,
@@ -50,11 +51,6 @@ from repro_torch.models.common import (
 
 NORMS = ("final_norm", "attn_norm", "mlp_norm", "patch_norm")
 FAMILIES = ("dense", "moe", "vlm")
-
-
-class TensorSpec(NamedTuple):
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 class DecoderLM(FlatParamsLM):
@@ -311,16 +307,16 @@ class DecoderLM(FlatParamsLM):
             cache_pos = torch.nn.functional.pad(pos, (0, C - S), value=-1)
             return {"k": ks, "v": vs, "pos": cache_pos.to(torch.int32)}
         if C < S:  # SWA rolling buffer keeps the trailing window
-            # slot for position p is p % C; trailing window is a rotation
+            # slot for position p is p % C; trailing window is a rotation,
+            # gathered on the device: slot j holds the tail's entry
+            # (j - shift) % C, shift = the tail's first position % C
             ks, vs = ks[:, :, -C:], vs[:, :, -C:]
             pos_tail = pos[:, -C:]
-            shift = (pos_tail[:, 0] % C).tolist()
-            ks = torch.stack([torch.roll(ks[:, b], s, dims=1)
-                              for b, s in enumerate(shift)], dim=1)
-            vs = torch.stack([torch.roll(vs[:, b], s, dims=1)
-                              for b, s in enumerate(shift)], dim=1)
-            cache_pos = torch.stack([torch.roll(pos_tail[b], s, dims=0)
-                                     for b, s in enumerate(shift)])
+            slots = torch.arange(C, device=pos.device)
+            src = (slots - (pos_tail[:, :1] % C).long()) % C      # (B, C)
+            idx = src[None, :, :, None, None].expand(ks.shape)
+            ks, vs = ks.gather(2, idx), vs.gather(2, idx)
+            cache_pos = pos_tail.gather(1, src)
         else:
             cache_pos = pos
         return {"k": ks, "v": vs, "pos": cache_pos.to(torch.int32)}

@@ -21,6 +21,10 @@ batch-sharded step of ``repro``, within float32 reduction order.  The
 model then runs under the context without those axes in ``act_batch``
 (``_local_ctx``): each rank's rows are one data-parallel shard.  Off a
 mesh the step is the single-process one, bit for bit.
+
+A batch of DTensors (the dry run, ``launch.cells``) is global and placed
+already: DTensor shards the step, as GSPMD shards ``repro``'s, so the step
+splits nothing itself and each microbatch keeps the batch's placements.
 """
 from __future__ import annotations
 
@@ -29,11 +33,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.distributed.sharding import (
     NULL_CTX, ShardingCtx, mesh_shape, resolve_axes,
 )
-from repro_torch.models.common import acc_dtype, torch_dtype
+from repro_torch.models.common import acc_dtype
 from repro_torch.models.transformer import TensorSpec
 from repro_torch.obs import LATENCY_BUCKETS, get_registry, get_tracer
 from repro_torch.train.optim import Optimizer
@@ -49,13 +54,10 @@ def make_train_state(model, optim: Optimizer, generator: torch.Generator,
 
 def train_state_specs(model, optim: Optimizer) -> Dict[str, Any]:
     """``TensorSpec``s of the train state, allocating nothing: the
-    parameters in ``param_dtype``, float32 ``m`` / ``v`` and an int32
-    ``step``, as ``repro``'s."""
-    dt = torch_dtype(model.cfg.param_dtype)
-    table = model.param_table()
-    p = {n: TensorSpec(s.shape, torch_dtype(s.dtype or dt))
-         for n, s in table.items()}
-    f32 = {n: TensorSpec(s.shape, torch.float32) for n, s in table.items()}
+    parameters as ``model.param_specs()`` gives them, float32 ``m`` / ``v``
+    and an int32 ``step``, as ``repro``'s."""
+    p = model.param_specs()
+    f32 = {n: TensorSpec(s.shape, torch.float32) for n, s in p.items()}
     return {"params": p,
             "opt": {"m": f32, "v": dict(f32),
                     "step": TensorSpec((), torch.int32)}}
@@ -100,6 +102,25 @@ def _shard_rows(batch, mesh, axes, M: int):
     keep = [i * size + d * part + j for i in range(M) for j in range(part)]
     idx = torch.as_tensor(keep, device=next(iter(batch.values())).device)
     return {k: v.index_select(0, idx) for k, v in batch.items()}
+
+
+def _microbatches(batch, M: int):
+    """The M microbatches: contiguous row slices (``repro``'s reshape to
+    (M, B/M, ...)).  A DTensor leaf is gathered once and each microbatch
+    takes the batch's placements (a shard of its rows on the batch axes)."""
+    size = next(iter(batch.values())).shape[0] // M
+    if not isinstance(next(iter(batch.values())), DTensor):
+        return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                for i in range(M)]
+    split = {}
+    for k, v in batch.items():
+        mesh = v.device_mesh
+        full = v.redistribute(mesh, [Replicate()] * mesh.ndim)
+        full = full.reshape(M, size, *v.shape[1:])
+        split[k] = full.redistribute(mesh, [
+            Shard(p.dim + 1) if isinstance(p, Shard) else p
+            for p in v.placements])
+    return [{k: v[i] for k, v in split.items()} for i in range(M)]
 
 
 def _local_ctx(ctx: ShardingCtx, axes) -> ShardingCtx:
@@ -162,12 +183,10 @@ def make_train_step(model, optim: Optimizer, *, num_microbatches: int = 1,
         if rows % M:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{M} microbatches")
-        size = rows // M
         loss = torch.zeros((), dtype=torch.float32,
                            device=next(iter(params.values())).device)
         grads = None
-        for i in range(M):
-            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+        for mb in _microbatches(batch, M):
             loss_i, _, g = grads_of(params, mb, ctx)
             loss = loss + loss_i
             if grads is None:
@@ -184,8 +203,10 @@ def make_train_step(model, optim: Optimizer, *, num_microbatches: int = 1,
     def train_step(state, batch):
         params = state["params"]
         batch = _to_device(batch, next(iter(params.values())).device)
-        rows = next(iter(batch.values())).shape[0]
-        axes = batch_axes(ctx, rows // M) if rows % M == 0 else ()
+        first = next(iter(batch.values()))
+        rows = first.shape[0]
+        axes = (batch_axes(ctx, rows // M)
+                if rows % M == 0 and not isinstance(first, DTensor) else ())
         if axes:
             batch = _shard_rows(batch, ctx.mesh, axes, M)
         loss, metrics, grads = compute_grads(
