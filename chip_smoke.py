@@ -173,7 +173,12 @@ Run from the root of a checkout:
    must not beat 4x the per-rank roofline bound (four ranks share the
    card).  (c) The card's bf16 torch.matmul rate at 8192^3 and a 4 GiB
    device copy's bytes a second, beside the roofline's constants; a
-   reading over 105% of a constant fails.
+   reading over 105% of a constant fails.  (d) In parallel with (a), two
+   sharded train steps on a (4, 4) fake mesh, 16 x 128 tokens in 2
+   microbatches (reduced llama3-8b at vocab 16,384; reduced zamba2-1.2b):
+   each dry-runs, takes at most 1.5x repro's compiled temp bytes a device
+   (26,958,600; 11,047,360) and has no op holding the whole vocabulary as
+   its last dimension; their bytes and collective bytes are logged.
 
 Phases 3, 5-6 and 8-16 are each driven with the kernel launch counts set
 to 0 just before and read just after.  Each phase's kernel-launch
@@ -3249,6 +3254,19 @@ PHASE15_CELL = dict(rows=250_000, d=128, R=PART_R, hubs=16, batch=10_000,
                     **PART_KNOBS)
 RATE_SHAPES = dict(matmul=8192, copy_bytes=4 << 30)
 DRYRUN_TIMEOUT_S = 300
+# sharded train steps on a (4, 4) fake mesh, 16 rows of 128 tokens in 2
+# microbatches: the reduced llama3-8b at a vocabulary of 16,384 (logits
+# sharded on the vocabulary) and the reduced zamba2-1.2b (its causal conv's
+# backward on a sharded DTensor); each with ``repro``'s compiled temp bytes
+# a device (XLA on 16 CPU placeholder devices; tests/test_torch_cells.py
+# compiles them and holds them to these numbers)
+TRAIN44_CELLS = {
+    "llama3-8b": dict(vocab_size=16384, repro_temp=26_958_600),
+    "zamba2-1.2b": dict(vocab_size=None, repro_temp=11_047_360),
+}
+TRAIN44_SHAPE = dict(seq=128, batch=16, micro=2, mesh=(4, 4))
+# the most temp bytes the port's steps may take beside ``repro``'s
+TRAIN44_TEMP_RATIO = 1.5
 
 PHASE15_PRICING = """
 import dataclasses, json, sys, torch
@@ -3280,6 +3298,41 @@ rec = {"arch": "phase15", "shape": "step", "mesh": "2x2", "n_devices": 4,
        "model_flops": 0.0, "hlo": tr.cost_analysis(),
        **dataclasses.asdict(tr.memory_analysis())}
 print("JSON", json.dumps(roofline_row(rec)))
+"""
+
+
+TRAIN44_PRICING = """
+import dataclasses, json, sys
+from repro_torch.configs import get_reduced
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.cells import build_cell, lower_cell
+from repro_torch.launch.dryrun import init_fake_world
+from repro_torch.launch.mesh import make_host_mesh
+c, dev = json.loads(sys.argv[1]), sys.argv[2]
+rows, cols = c["mesh"]
+init_fake_world(rows * cols)
+mesh = make_host_mesh((rows, cols), device=dev)
+cfg = get_reduced(c["arch"])
+if c["vocab_size"]:
+    cfg = cfg.with_(vocab_size=c["vocab_size"])
+V = cfg.vocab_size
+cell = build_cell(cfg, ShapeSpec("train_4k", "train", c["seq"], c["batch"]),
+                  mesh, num_microbatches=c["micro"])
+tr = lower_cell(cell)
+h = tr.cost_analysis()
+def shapes(spec):
+    if spec and isinstance(spec[1], str):
+        return [spec[0]]
+    return [s for x in spec or [] for s in shapes(x)]
+# ops whose outputs have the whole vocabulary as their last dimension
+whole = sorted({r[0] for run in tr.runs for r in run if r[1] == "op"
+                and any(s and s[-1] == V for o in r[2] for s in shapes(o))})
+print("JSON", json.dumps({**dataclasses.asdict(tr.memory_analysis()),
+                          "collective_bytes": h["collective_bytes"],
+                          "collectives": h["collectives"],
+                          "dot_flops": h["dot_flops"],
+                          "whole_vocab_ops": whole,
+                          "fallbacks": cell.fallbacks + tr.fallbacks}))
 """
 
 
@@ -3343,7 +3396,8 @@ def matmul_and_copy_rates(torch, dev, shapes=None) -> dict:
 
 
 def dryrun_phase(torch, np, dev, phase15_step_s: float,
-                 cells=DRYRUN_CELLS, p15=PHASE15_CELL) -> dict:
+                 cells=DRYRUN_CELLS, p15=PHASE15_CELL,
+                 train44=TRAIN44_CELLS) -> dict:
     """Phase 16: (a) ``python -m repro_torch.launch.dryrun`` for each of
     ``cells`` on the 16x16 fake mesh (fake tensors on ``dev``'s type), in
     parallel subprocesses: every one exits 0 with ``ok``, its argument
@@ -3355,7 +3409,11 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
     slowest rank's median) must not beat 4x the per-rank bound (four
     ranks share the card).  (c) The card's bf16 matmul and copy rates
     beside the roofline's constants; a reading over 105% of a constant
-    fails."""
+    fails.  (d) Beside (a), each of ``train44``'s sharded train steps on
+    its fake mesh (``TRAIN44_SHAPE``): it dry-runs, its temp bytes a
+    device at most ``TRAIN44_TEMP_RATIO`` times ``repro``'s compiled ones,
+    and no op has the whole vocabulary as its last dimension; its bytes
+    and collective bytes logged."""
     from repro_torch.launch import gate_cell, roofline
     from repro_torch.configs import get_config, SHAPES
 
@@ -3376,6 +3434,13 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
             [sys.executable, "-c", PHASE15_PRICING, json.dumps(p15),
              dev.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True, env=env, cwd=ROOT)
+        for arch, c in train44.items():
+            procs[f"train44:{arch}"] = subprocess.Popen(
+                [sys.executable, "-c", TRAIN44_PRICING, json.dumps(
+                    {"arch": arch, "vocab_size": c["vocab_size"],
+                     **TRAIN44_SHAPE}), dev.type],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=ROOT)
         # (c) on the card while the dry runs keep the host busy
         rates = (matmul_and_copy_rates(torch, dev) if dev.type == "cuda"
                  else None)
@@ -3443,6 +3508,27 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
             "phase 16: phase 15's measured step beats 4x its roofline "
             "bound: the analysis counts work the step does not do")
 
+    t44s = {}
+    for arch, c in train44.items():
+        t44 = json.loads([ln for ln in done[f"train44:{arch}"].splitlines()
+                          if ln.startswith("JSON ")][-1][5:])
+        t44["temp_vs_repro"] = ratio = \
+            t44["temp_size_in_bytes"] / c["repro_temp"]
+        t44s[arch] = t44
+        log(f"phase 16: {arch} train step on a {TRAIN44_SHAPE['mesh']} fake "
+            f"mesh: argument / output / temp bytes a device "
+            f"{t44['argument_size_in_bytes']} / "
+            f"{t44['output_size_in_bytes']} / {t44['temp_size_in_bytes']} "
+            f"({ratio:.3f}x repro's compiled {c['repro_temp']}); collective "
+            f"bytes {t44['collective_bytes']:.0f} "
+            f"{json.dumps(t44['collectives'])}")
+        require(ratio <= TRAIN44_TEMP_RATIO,
+                f"phase 16: the {arch} train cell's temp is {ratio:.3f}x "
+                f"repro's (limit {TRAIN44_TEMP_RATIO})")
+        require(not t44["whole_vocab_ops"],
+                f"phase 16: the {arch} train cell holds the whole "
+                f"vocabulary in {t44['whole_vocab_ops']}")
+
     if rates is not None:
         log(f"phase 16: bf16 matmul {rates['matmul_flops_per_s'] / 1e12:.1f}"
             f" TFLOP/s against {roofline.PEAK_FLOPS / 1e12:.0f}; copy "
@@ -3457,6 +3543,7 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
     return {"cells": checks, "roofline": rows, "phase15": {
         "step_s": phase15_step_s, "per_rank_bound_s": per_rank,
         "bound_x4_s": 4 * per_rank, "row": p15_row},
+        "train44": t44s,
         "rates": rates, "constants": {
             "peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW,
             "link_bw": roofline.LINK_BW, "hbm_gib": roofline.HBM_GIB},

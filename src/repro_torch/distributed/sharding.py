@@ -242,5 +242,37 @@ class ShardingCtx:
             return x.redistribute(self.mesh, placements(self.mesh, spec))
         return x
 
+    def gather_fsdp(self, params, dtype=None, keep: Sequence[str] = ()):
+        """A weight, or a dict of a layer's weights, for the loss path:
+        each DTensor's shards on the mesh axes of the profile's ``embed``
+        rule (FSDP's: "data" under the train profile) gathered, its
+        tensor-parallel shards kept: the all-gather at use that GSPMD
+        places in ``repro``'s train step.  With both operands of a product
+        laid out so, DTensor keeps the activations on their batch shards
+        and the weights' gradients on their own shards (reduce-scattered
+        back).  A gathered weight is cast to ``dtype`` first (the compute
+        dtype its every use reads it in: half float32's bytes move), but
+        for the names in ``keep``.  Off a mesh, with no FSDP axis, and for
+        a plain tensor, the weights as they are; the values never
+        change."""
+        if isinstance(params, dict):
+            return {k: self.gather_fsdp(w, None if k in keep else dtype)
+                    for k, w in params.items()}
+        if self.mesh is None or self.profile is None or \
+                not isinstance(params, DTensor):
+            return params
+        rule = self.profile.rules.get("embed")
+        axes = () if rule is None else (rule,) if isinstance(rule, str) \
+            else tuple(rule)
+        dims = [i for i, n in enumerate(self.mesh.mesh_dim_names)
+                if n in axes]
+        if not any(params.placements[i].is_shard() for i in dims):
+            return params
+        if dtype is not None:
+            params = params.to(dtype)
+        return params.redistribute(self.mesh, [
+            Replicate() if i in dims else p
+            for i, p in enumerate(params.placements)])
+
 
 NULL_CTX = ShardingCtx()

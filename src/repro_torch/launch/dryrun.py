@@ -22,9 +22,9 @@ Options: --multi-pod, --both-meshes, --jobs N (--all: N cells at once),
          --out DIR,
          --profile {train,prefill,decode,long}, --micro N (train
          microbatches override), --tag, --set key=value,
-         --device {cuda,cpu} (the fake tensors' device: the card's where
-         there is one; on a CPU mesh DTensor swaps all-to-all for
-         all-gather + chunk)
+         --device {cuda,cpu} (the fake tensors' device, cuda by default:
+         with no card the run stops unless cpu is asked for; on a CPU
+         mesh DTensor swaps all-to-all for all-gather + chunk)
 """
 import argparse
 import gzip
@@ -56,10 +56,17 @@ def init_fake_world(n: int) -> None:
                                 world_size=n)
 
 
-def default_device() -> str:
+def check_device(device: str) -> str:
+    """``device`` itself; raises when it is ``cuda`` and no card is
+    present (the dry run never falls back to the CPU by itself)."""
     import torch
 
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the dry run's fake tensors default to cuda, and no card is "
+            "present: pass --device cpu (device='cpu') to dry-run on the "
+            "CPU, where DTensor swaps all-to-all for all-gather + chunk")
+    return device
 
 
 def _apply_overrides(cfg, sets):
@@ -91,7 +98,7 @@ def _apply_overrides(cfg, sets):
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
              micro=None, profile_kind=None, sets=None, tag: str = "",
-             device: str = None) -> dict:
+             device: str = "cuda") -> dict:
     from repro_torch.configs import SHAPES, get_config, shape_applicable
     from repro_torch.distributed.sharding import make_profile
     from repro_torch.launch import gate_cell
@@ -99,7 +106,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.model import model_flops_per_step
 
-    device = device or default_device()
+    check_device(device)
     mesh_name = "2x16x16" if multi_pod else "16x16"
     init_fake_world(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod, device=device)
@@ -187,13 +194,14 @@ def main(argv=None):
     ap.add_argument("--tag", default="")
     ap.add_argument("--jobs", type=int, default=1,
                     help="--all: cells run at once, a subprocess each")
-    ap.add_argument("--device", default=None,
-                    help="the fake tensors' device (default: cuda where "
-                         "there is a card, else cpu)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the fake tensors' device (default cuda, which "
+                         "needs a card)")
     ap.add_argument("--set", action="append", default=[],
                     help="config override key=value (moe.impl=dropping, "
                          "attn_chunk=512, ...); repeatable")
     args = ap.parse_args(argv)
+    check_device(args.device)
 
     os.makedirs(args.out, exist_ok=True)
 
@@ -217,8 +225,7 @@ def main(argv=None):
                     cmd.append("--multi-pod")
                 if args.tag:
                     cmd += ["--tag", args.tag]
-                if args.device:
-                    cmd += ["--device", args.device]
+                cmd += ["--device", args.device]
                 cmds.append((f"{arch} {shape} {mesh_name}", cmd))
 
         def one(item):

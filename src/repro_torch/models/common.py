@@ -20,8 +20,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor._utils import (
+    compute_local_shape_and_global_offset,
+)
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
@@ -354,20 +359,183 @@ def cache_update(
     return cache_k, cache_v, cache_pos
 
 
+def _vocab_dims(t, dim: int) -> Tuple[int, ...]:
+    """The mesh dimensions that shard dimension ``dim`` (the vocabulary)
+    of a DTensor; none for a plain tensor."""
+    if not isinstance(t, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(t.placements)
+                 if p.is_shard(dim % t.ndim))
+
+
+# the gather and reduce-scatter along one dimension (``*_single`` from
+# torch 2.12 on, ``*_tensor`` before it)
+_all_gather_dim = getattr(funcol, "all_gather_single", None) \
+    or funcol.all_gather_tensor
+_reduce_scatter_dim = getattr(funcol, "reduce_scatter_single", None) \
+    or funcol.reduce_scatter_tensor
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    """A functional collective's result, waited for."""
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _all_reduce(t: torch.Tensor, op: str, mesh, dim: int) -> torch.Tensor:
+    return _wait(funcol.all_reduce(t, op, (mesh, dim)))
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax at the gold label, on each rank's vocabulary shard
+    ``[lo, lo + v)`` of its own rows: the row max all-reduced with MAX and
+    the sum of ``exp(lf - max)`` with SUM over the mesh dimensions that
+    shard the vocabulary, the gold logit picked where the label falls in
+    the shard (zero elsewhere) and all-reduced with SUM.  The backward is
+    ``softmax - onehot`` on the shard: no rank holds the whole vocabulary
+    or another rank's rows."""
+
+    @staticmethod
+    def forward(ctx, lf, labels, lo, mesh, dims):
+        m = lf.amax(-1)
+        for d in dims:
+            m = _all_reduce(m, "max", mesh, d)
+        # torch.logsumexp's steps: exp of the shifted logits, summed, then
+        # log plus the max (an infinite max adds 0)
+        s = torch.sum((lf - m[..., None]).exp_(), dim=-1)
+        for d in dims:
+            s = _all_reduce(s, "sum", mesh, d)
+        lse = torch.log(s) + torch.where(torch.isinf(m), 0.0, m)
+        idx = labels.long() - lo
+        inside = (idx >= 0) & (idx < lf.shape[-1])
+        idx = torch.where(inside, idx, 0)[..., None]
+        gold = torch.where(inside, torch.gather(lf, -1, idx)[..., 0], 0.0)
+        for d in dims:
+            gold = _all_reduce(gold, "sum", mesh, d)
+        ctx.save_for_backward(lf, lse, idx, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, lse, idx, inside = ctx.saved_tensors
+        grad = g[..., None] * (lf - lse[..., None]).exp()
+        gold = torch.where(inside, -g, 0.0)[..., None]
+        grad = grad.scatter_add(-1, idx, gold)
+        return grad, None, None, None, None
+
+
+class _VocabParallelEmbed(torch.autograd.Function):
+    """The rows of ``tokens`` in a table's vocabulary shard ``[lo, lo +
+    v)``, zero for tokens outside it, all-reduced with SUM over the mesh
+    dimensions that shard the vocabulary (``dims``; exact: one shard holds
+    each row).  The table's shards of its second dimension (FSDP's, over
+    ``gather_dims``) are gathered first and its gradient reduce-scattered
+    back.  The backward accumulates each token's gradient into the shard
+    that holds its row: no rank makes the whole table."""
+
+    @staticmethod
+    def forward(ctx, emb, tokens, lo, mesh, dims, gather_dims):
+        # the innermost mesh dim first, each gather along the columns of
+        # the transposed table (every buffer keeps the shard's rows only)
+        for d in reversed(gather_dims):
+            emb = _wait(_all_gather_dim(
+                emb.t().contiguous(), 0, (mesh, d))).t()
+        idx = tokens.long() - lo
+        inside = (idx >= 0) & (idx < emb.shape[0])
+        idx = torch.where(inside, idx, 0)
+        rows = torch.where(inside[..., None], emb[idx], 0.0)
+        for d in dims:
+            rows = _all_reduce(rows, "sum", mesh, d)
+        ctx.save_for_backward(idx, inside)
+        ctx.n_rows, ctx.mesh, ctx.gather_dims = emb.shape[0], mesh, gather_dims
+        return rows
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, inside = ctx.saved_tensors
+        grad = g.new_zeros((ctx.n_rows, g.shape[-1]))
+        grad.index_put_((idx,), torch.where(inside[..., None], g, 0.0),
+                        accumulate=True)
+        for d in ctx.gather_dims:
+            grad = _wait(_reduce_scatter_dim(
+                grad.t().contiguous(), "sum", 0, (ctx.mesh, d))).t()
+        return grad, None, None, None, None, None
+
+
+def embed_rows(emb: torch.Tensor, tokens, vocab_parallel: bool = False):
+    """``emb[tokens]``.  With ``vocab_parallel`` (the loss path) and
+    ``emb`` a DTensor sharded on its vocabulary, the vocab-parallel lookup
+    (``_VocabParallelEmbed``), sharded as the tokens' rows are: DTensor's
+    own lookup gathers the whole table to every rank, and its backward
+    scatters into a whole-table zeros.  The table's second dimension may
+    be sharded evenly (FSDP); a mesh dimension that replicates the table
+    sums the ranks' gradients."""
+    tokens = torch.as_tensor(tokens).to(emb.device)
+    dims = _vocab_dims(emb, 0) if vocab_parallel else ()
+    if not dims:
+        return emb[tokens.long()]
+    mesh = emb.device_mesh
+    gather_dims = tuple(i for i, p in enumerate(emb.placements)
+                        if p.is_shard(1))
+    rows = [Replicate() if i in dims else p
+            for i, p in enumerate(tokens.placements)]
+    tokens = tokens.redistribute(mesh, rows)
+    _, offset = compute_local_shape_and_global_offset(
+        emb.shape, mesh, emb.placements)
+    # each rank's gradient is its own rows' part of the table's
+    local = emb.to_local(grad_placements=[
+        Partial() if p.is_replicate() else p for p in emb.placements])
+    out = _VocabParallelEmbed.apply(local, tokens.to_local(), offset[0],
+                                    mesh, dims, gather_dims)
+    return _from_rows(out, mesh, rows, tuple(tokens.shape) + emb.shape[1:])
+
+
+def _from_rows(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """A DTensor of global ``shape`` from this rank's ``local`` piece."""
+    stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def _vocab_parallel_nll(lf: DTensor, labels, dims) -> DTensor:
+    """Per-position NLL of vocab-sharded logits (a DTensor), as a DTensor
+    sharded as the logits' rows are and replicated over the vocabulary's
+    mesh dimensions."""
+    mesh = lf.device_mesh
+    rows = [Replicate() if i in dims else p
+            for i, p in enumerate(lf.placements)]
+    labels = labels.redistribute(mesh, rows)
+    _, offset = compute_local_shape_and_global_offset(
+        lf.shape, mesh, lf.placements)
+    nll = _VocabParallelNLL.apply(lf.to_local(), labels.to_local(),
+                                  offset[-1], mesh, dims)
+    return _from_rows(nll, mesh, rows, lf.shape[:-1])
+
+
 def cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean next-token CE in fp32 (float64 for a float64 model); logits
-    (B,S,V), labels (B,S)."""
+    (B,S,V), labels (B,S).  Logits that are a DTensor sharded on the
+    vocabulary (the labels and mask DTensors on its mesh) take the
+    vocab-parallel path (``_VocabParallelNLL``), which never gathers the
+    vocabulary."""
     at = acc_dtype(logits.dtype)
     lf = logits.to(at)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    dims = _vocab_dims(lf, -1)
+    if dims:
+        nll = _vocab_parallel_nll(lf, labels, dims)
+        if mask is not None:
+            mask = mask.redistribute(nll.device_mesh, nll.placements)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        nll = lse - gold
     if mask is not None:
         mask = mask.to(at)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    if dims:  # DTensor's mean backward would make every rank's a global one
+        return torch.sum(nll) / nll.numel()
     return torch.mean(nll)
 
 

@@ -32,6 +32,7 @@ from repro_torch.models.common import (
     blockwise_attention,
     cache_update,
     decode_attention,
+    embed_rows,
     glu_mlp,
     next_token_ce,
     remat,
@@ -94,6 +95,10 @@ class EncDecLM(FlatParamsLM):
         t.update(mlp_block("dec/", ld))
         return t
 
+    def _layer_keep(self):
+        """``KEEP``'s names as ``_stack`` gives a layer's weights."""
+        return [k.split("/")[-1] for k in self.KEEP]
+
     def _stack(self, params: Params, side: str, i: int) -> Params:
         """Layer ``i`` of the ``side/`` ("enc" or "dec") weights, by their
         names without the prefix."""
@@ -138,7 +143,7 @@ class EncDecLM(FlatParamsLM):
     def _positions(B: int, S: int, device) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
-    def _encode(self, params, frames, ctx):
+    def _encode(self, params, frames, ctx, loss: bool = False):
         """Returns (the normed encoder output, its positions)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
@@ -148,6 +153,8 @@ class EncDecLM(FlatParamsLM):
         pos = self._positions(B, S, x.device)
 
         def body(x, p_l):
+            if loss:  # the loss path: the weights' FSDP shards gathered
+                p_l = ctx.gather_fsdp(p_l, dt, self._layer_keep())
             a, _ = self._attn(p_l, "", x, pos, pos, causal=False, ctx=ctx)
             x = x + a
             x = x + self._mlp(p_l, x, ctx)
@@ -157,9 +164,10 @@ class EncDecLM(FlatParamsLM):
             x = remat(cfg, body, x, self._stack(params, "enc", i))
         return rms_norm(x, params["enc_final_norm"], cfg.norm_eps), pos
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, loss: bool = False):
+        """The tokens' rows (vocab-parallel on the loss path)."""
         emb = params["tok_embed"].to(torch_dtype(self.cfg.compute_dtype))
-        return emb[torch.as_tensor(tokens).to(emb.device).long()]
+        return embed_rows(emb, tokens, vocab_parallel=loss)
 
     def _dec_layer(self, p_l, x, pos, enc_out, enc_pos, ctx):
         """One decoder layer over the full sequence.  Returns (x, self K / V,
@@ -178,7 +186,8 @@ class EncDecLM(FlatParamsLM):
         """Returns (the normed decoder output, positions, ((k, v), (xk, xv))
         stacked over the layers, or None)."""
         cfg = self.cfg
-        x = ctx.constrain(self._embed(params, tokens),
+        x = ctx.constrain(self._embed(params, tokens,
+                                      loss=not collect_caches),
                           ("act_batch", "act_seq", "act_embed"))
         B, S, _ = x.shape
         pos = self._positions(B, S, x.device)
@@ -187,7 +196,8 @@ class EncDecLM(FlatParamsLM):
             p_l = self._stack(params, "dec", i)
             if not collect_caches:
                 x = remat(cfg, lambda x, p: self._dec_layer(
-                    p, x, pos, enc_out, enc_pos, ctx)[0], x, p_l)
+                    ctx.gather_fsdp(p, x.dtype, self._layer_keep()), x, pos,
+                    enc_out, enc_pos, ctx)[0], x, p_l)
                 continue
             x, (k, v), (xk, xv) = self._dec_layer(p_l, x, pos, enc_out,
                                                   enc_pos, ctx)
@@ -201,8 +211,10 @@ class EncDecLM(FlatParamsLM):
         stack = torch.stack
         return x, pos, ((stack(ks), stack(vs)), (stack(xks), stack(xvs)))
 
-    def _logits(self, params, x):
-        return x @ params["lm_head"].to(x.dtype)
+    def _logits(self, params, x, ctx: ShardingCtx = NULL_CTX):
+        """The LM head's logits, its FSDP shards gathered first under
+        ``ctx`` (the loss path's)."""
+        return x @ ctx.gather_fsdp(params["lm_head"].to(x.dtype))
 
     # --------------------------------------------------------------------- API
     def loss(self, params, batch, ctx: ShardingCtx = NULL_CTX):
@@ -210,11 +222,12 @@ class EncDecLM(FlatParamsLM):
         ``batch["tokens"]`` given ``batch["frames"]``, against
         ``batch["labels"]`` (label -1 is ignored); returns (loss, {"ce",
         "aux"}), aux zero."""
-        enc_out, enc_pos = self._encode(params, batch["frames"], ctx)
+        enc_out, enc_pos = self._encode(params, batch["frames"], ctx,
+                                        loss=True)
         x, _, _ = self._decoder_full(params, batch["tokens"], enc_out,
                                      enc_pos, ctx, collect_caches=False)
         labels = torch.as_tensor(batch["labels"], device=x.device)
-        logits = ctx.constrain(self._logits(params, x),
+        logits = ctx.constrain(self._logits(params, x, ctx),
                                ("act_batch", "act_seq", "act_vocab"))
         ce = next_token_ce(logits, labels)
         return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}

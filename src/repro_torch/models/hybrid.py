@@ -29,6 +29,7 @@ from repro_torch.models.common import (
     blockwise_attention,
     cache_update,
     decode_attention,
+    embed_rows,
     glu_mlp,
     next_token_ce,
     remat,
@@ -45,6 +46,8 @@ from repro_torch.models.transformer import TensorSpec
 
 
 def _mamba_residual(p_l, x, cfg, ctx):
+    """The loss path's Mamba block, on the weights' FSDP shards gathered."""
+    p_l = ctx.gather_fsdp(p_l, x.dtype, MAMBA_KEEP)
     return x + mamba_block_full(p_l, x, cfg, ctx)[0]
 
 
@@ -91,9 +94,17 @@ class HybridLM(FlatParamsLM):
     def _layer(self, params: Params, i: int) -> Params:
         return {n: params[f"m/{n}"][i] for n in self._mamba_names()}
 
-    def _embed(self, params, tokens):
+    def _shared_gathered(self, params, ctx):
+        """``params`` with the shared block's weights' FSDP shards gathered
+        (the loss path's)."""
+        return {**params, **ctx.gather_fsdp(
+            {k: v for k, v in params.items() if k.startswith("s_")},
+            torch_dtype(self.cfg.compute_dtype), self.KEEP)}
+
+    def _embed(self, params, tokens, loss: bool = False):
+        """The tokens' rows (vocab-parallel on the loss path)."""
         emb = params["tok_embed"].to(torch_dtype(self.cfg.compute_dtype))
-        return emb[torch.as_tensor(tokens).to(emb.device).long()]
+        return embed_rows(emb, tokens, vocab_parallel=loss)
 
     # ------------------------------------------------------------ shared block
     def _shared_qkv(self, params, h, pos):
@@ -140,7 +151,8 @@ class HybridLM(FlatParamsLM):
     # ------------------------------------------------------------------ modes
     def _forward_full(self, params, tokens, ctx, want_caches: bool):
         cfg = self.cfg
-        x = ctx.constrain(self._embed(params, tokens),
+        x = ctx.constrain(self._embed(params, tokens,
+                                      loss=not want_caches),
                           ("act_batch", "act_seq", "act_embed"))
         B, S, _ = x.shape
         pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
@@ -153,7 +165,8 @@ class HybridLM(FlatParamsLM):
                 x = remat(cfg, _mamba_residual, p_l, x, cfg, ctx)
                 if shared:
                     x = remat(cfg, lambda x: self._shared_full(
-                        params, x, pos, ctx)[0], x)
+                        self._shared_gathered(params, ctx), x, pos, ctx)[0],
+                        x)
                 continue
             # conv state = the trailing k-1 conv INPUTS of this layer
             tail = x[:, -(k_conv - 1):]
@@ -179,7 +192,8 @@ class HybridLM(FlatParamsLM):
         cfg = self.cfg
         x, _, _ = self._forward_full(params, batch["tokens"], ctx, False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = ctx.constrain(x @ params["lm_head"].to(x.dtype),
+        head = ctx.gather_fsdp(params["lm_head"].to(x.dtype))
+        logits = ctx.constrain(x @ head,
                                ("act_batch", "act_seq", "act_vocab"))
         labels = torch.as_tensor(batch["labels"], device=x.device)
         ce = next_token_ce(logits, labels)

@@ -30,6 +30,7 @@ from repro_torch.models.common import (
     Params,
     _pad_seq,
     acc_dtype,
+    embed_rows,
     next_token_ce,
     remat,
     rms_norm,
@@ -185,9 +186,10 @@ class RWKVLM(FlatParamsLM):
     def _layer(self, params: Params, i: int) -> Params:
         return {n: params[n][i] for n in self._layer_names()}
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, loss: bool = False):
+        """The tokens' rows (vocab-parallel on the loss path), normed."""
         emb = params["tok_embed"].to(torch_dtype(self.cfg.compute_dtype))
-        x = emb[torch.as_tensor(tokens).to(emb.device).long()]
+        x = embed_rows(emb, tokens, vocab_parallel=loss)
         return rms_norm(x, params["ln0"], self.cfg.norm_eps)
 
     # -------------------------------------------------------------- time mix
@@ -257,13 +259,15 @@ class RWKVLM(FlatParamsLM):
         return ctx.constrain(x, ("act_batch", "act_seq", "act_embed")), h[:, -1]
 
     def _layer_loss(self, p, x, ctx):
-        """One layer's time and channel mix, without the states."""
+        """One layer's time and channel mix, without the states, on the
+        weights' FSDP shards gathered."""
+        p = ctx.gather_fsdp(p, x.dtype, self.KEEP)
         x = self._time_mix_full(p, x, ctx)[0]
         return self._channel_mix_full(p, x, ctx)[0]
 
     # ------------------------------------------------------------------ modes
     def _forward_full(self, params, tokens, ctx, want_state: bool):
-        x = ctx.constrain(self._embed(params, tokens),
+        x = ctx.constrain(self._embed(params, tokens, loss=not want_state),
                           ("act_batch", "act_seq", "act_embed"))
         states = []
         for i in range(self.cfg.num_layers):
@@ -285,7 +289,8 @@ class RWKVLM(FlatParamsLM):
         cfg = self.cfg
         x, _ = self._forward_full(params, batch["tokens"], ctx, False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = ctx.constrain(x @ params["lm_head"].to(x.dtype),
+        head = ctx.gather_fsdp(params["lm_head"].to(x.dtype))
+        logits = ctx.constrain(x @ head,
                                ("act_batch", "act_seq", "act_vocab"))
         labels = torch.as_tensor(batch["labels"], device=x.device)
         ce = next_token_ce(logits, labels)

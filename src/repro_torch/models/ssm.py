@@ -57,12 +57,15 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, C), w: (k, C).  Unrolled shifted-add causal conv."""
-    k = w.shape[0]
+    """x: (B, S, C), w: (k, C).  Unrolled shifted-add causal conv: ``x``
+    padded once by k - 1 at the front, each tap a slice of it (``repro``
+    pads a slice a tap; the products and sums are the same, so are the
+    bits, and no slice of a sharded tensor is padded)."""
+    k, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
     out = x * w[k - 1]
     for i in range(1, k):
-        shifted = F.pad(x[:, :-i], (0, 0, i, 0))
-        out = out + shifted * w[k - 1 - i]
+        out = out + xp[:, k - 1 - i:k - 1 - i + S] * w[k - 1 - i]
     return out
 
 

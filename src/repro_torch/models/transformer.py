@@ -41,6 +41,7 @@ from repro_torch.models.common import (
     blockwise_attention,
     cache_update,
     decode_attention,
+    embed_rows,
     glu_mlp,
     next_token_ce,
     remat,
@@ -178,7 +179,9 @@ class DecoderLM(FlatParamsLM):
         return x, (k, v), aux
 
     def _layer_loss(self, p, x, pos, ctx):
-        """``_layer_full`` without the K / V: (x, aux)."""
+        """``_layer_full`` without the K / V, on the weights' FSDP shards
+        gathered: (x, aux)."""
+        p = ctx.gather_fsdp(p, x.dtype, self.KEEP)
         x, _, aux = self._layer_full(p, x, pos, ctx)
         return x, aux
 
@@ -197,21 +200,21 @@ class DecoderLM(FlatParamsLM):
         return x + self._mlp(p, h2, ctx)[0], ck, cv, cp
 
     # ------------------------------------------------------------- embeddings
-    def _embed_tokens(self, params, tokens, ctx):
+    def _embed_tokens(self, params, tokens, ctx, loss: bool = False):
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
         emb = params["tok_embed"].to(dt)
-        x = emb[torch.as_tensor(tokens).to(emb.device).long()]
+        x = embed_rows(emb, tokens, vocab_parallel=loss)
         if cfg.tie_embeddings:  # gemma-style embed scaling
             x = x * scalar_in(np.sqrt(cfg.d_model), dt)
         return ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
 
-    def _assemble_input(self, params, batch, ctx):
-        """Token embeds, with the VLM patch prefix when the batch has
-        ``patches``.  Returns (x, labels), the labels (if any) padded with
-        -1 on the patch positions."""
+    def _assemble_input(self, params, batch, ctx, loss: bool = False):
+        """Token embeds (vocab-parallel on the loss path), with the VLM
+        patch prefix when the batch has ``patches``.  Returns (x, labels),
+        the labels (if any) padded with -1 on the patch positions."""
         cfg = self.cfg
-        x = self._embed_tokens(params, batch["tokens"], ctx)
+        x = self._embed_tokens(params, batch["tokens"], ctx, loss)
         labels = batch.get("labels")
         if labels is not None:
             labels = torch.as_tensor(labels, device=x.device)
@@ -227,13 +230,17 @@ class DecoderLM(FlatParamsLM):
                 labels = torch.cat([pad, labels], dim=1)
         return x, labels
 
-    def _logits(self, params, x, ctx):
+    def _logits(self, params, x, ctx, loss: bool = False):
+        """The LM head's logits; on the loss path its FSDP shards are
+        gathered first."""
         dt = x.dtype
         head = (
             params["tok_embed"].to(dt).T
             if self.cfg.tie_embeddings
             else params["lm_head"].to(dt)
         )
+        if loss:
+            head = ctx.gather_fsdp(head)
         return ctx.constrain(x @ head, ("act_batch", "act_seq", "act_vocab"))
 
     # ------------------------------------------------------------------ modes
@@ -269,13 +276,13 @@ class DecoderLM(FlatParamsLM):
         ``router_aux_coef`` times the layers' summed router aux term;
         returns (loss, {"ce", "aux"})."""
         cfg = self.cfg
-        x, labels = self._assemble_input(params, batch, ctx)
+        x, labels = self._assemble_input(params, batch, ctx, loss=True)
         B, S, _ = x.shape
         x, _, aux = self._stack_full(params, x,
                                      self._positions(B, S, x.device), ctx,
                                      collect_kv=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self._logits(params, x, ctx)
+        logits = self._logits(params, x, ctx, loss=True)
         ce = next_token_ce(logits, labels)
         if aux is None:
             return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}

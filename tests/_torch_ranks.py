@@ -243,3 +243,85 @@ def fake_mesh_shapes():
         return [(mesh_shape(m), m.size()) for m in (m1, m2)]
     finally:
         dist.destroy_process_group()
+
+
+def vocab_parallel_ce_rank(rank, world, cases, embeds):
+    """``next_token_ce`` and ``cross_entropy`` (no mask) on logits that are
+    a DTensor sharded over a ("data", "model") mesh of ``(world // 2, 2)``:
+    rows over "data", the vocabulary over "model"; the labels a DTensor
+    sharded as the rows.  ``cases`` maps a name to (logits, labels) numpy
+    arrays; returns per case and per loss the loss, the logits' whole
+    gradient, the rank's shard of the logits and the shapes of the
+    buffers every op of the loss and its backward made.  ``embeds`` maps a
+    name to (table, tokens, cotangent): ``embed_rows(vocab_parallel=True)``
+    of the table sharded as the train profile shards it, the rows and the
+    table's gradient under ``sum(rows * cotangent)``, the same way."""
+    import torch
+    from torch.distributed.tensor import (
+        DTensor, Replicate, Shard, distribute_tensor,
+    )
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import (
+        cross_entropy, embed_rows, next_token_ce,
+    )
+
+    class LocalShapes(TorchDispatchMode):
+        """The shapes of the buffers ops allocate on this rank (a DTensor
+        op is passed on to DTensor, whose local ops come back here; its
+        sharding propagation's fake tensors at global shape, and views,
+        allocate nothing)."""
+
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if any(r.alias_info is not None for r in func._schema.returns):
+                return out
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and t.device.type != "meta" \
+                        and not isinstance(t, FakeTensor):
+                    self.shapes.append(tuple(t.shape))
+            return out
+
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for name, (logits, labels) in cases.items():
+        for loss_name in ("next_token_ce", "cross_entropy"):
+            lg = distribute_tensor(torch.from_numpy(logits), mesh,
+                                   [Shard(0), Shard(2)])
+            lg.requires_grad_(True)
+            lb = distribute_tensor(torch.from_numpy(labels), mesh,
+                                   [Shard(0), Replicate()])
+            with LocalShapes() as rec:
+                if loss_name == "next_token_ce":
+                    loss = next_token_ce(lg, lb)
+                else:
+                    loss = cross_entropy(lg, torch.clamp_min(lb, 0))
+                loss.backward()
+            out[(name, loss_name)] = (loss.detach().full_tensor().numpy(),
+                                      lg.grad.full_tensor().numpy(),
+                                      lg.to_local().shape, rec.shapes)
+    for name, (table, tokens, cot) in embeds.items():
+        # the table as the train profile shards it: vocab over "model",
+        # embed over "data" (FSDP); the tokens and the cotangent over rows
+        emb = distribute_tensor(torch.from_numpy(table), mesh,
+                                [Shard(1), Shard(0)])
+        emb.requires_grad_(True)
+        tk = distribute_tensor(torch.from_numpy(tokens), mesh,
+                               [Shard(0), Replicate()])
+        ct = distribute_tensor(torch.from_numpy(cot), mesh,
+                               [Shard(0), Replicate()])
+        with LocalShapes() as rec:
+            rows = embed_rows(emb, tk, vocab_parallel=True)
+            (rows * ct).sum().backward()
+        out[(name, "embed_rows")] = (rows.detach().full_tensor().numpy(),
+                                     emb.grad.full_tensor().numpy(),
+                                     emb.to_local().shape, rec.shapes)
+    return out

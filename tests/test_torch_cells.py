@@ -297,3 +297,82 @@ def test_small_cells_hold_repros_argument_bytes(small_cells, name):
         assert b["dot_flops"] >= b["dot_flops"] * b["useful_ratio"] - head
     else:
         assert 0 < b["useful_ratio"] <= 1.0
+
+
+# ------------------------------------ the sharded train steps on 4x4
+REPRO_TRAIN44 = """
+import json, sys
+from repro.configs import get_reduced
+from repro.configs.base import ShapeSpec
+from repro.launch.cells import build_cell, lower_cell
+from repro.launch.hlo_analysis import analyze_compiled
+from repro.launch.mesh import make_host_mesh
+c = json.loads(sys.argv[1])
+mesh = make_host_mesh(tuple(c["mesh"]))
+cfg = get_reduced(c["arch"])
+if c["vocab_size"]:
+    cfg = cfg.with_(vocab_size=c["vocab_size"])
+cell = build_cell(cfg, ShapeSpec("train_4k", "train", c["seq"], c["batch"]),
+                  mesh, num_microbatches=c["micro"])
+with mesh:
+    compiled = lower_cell(cell).compile()
+m = compiled.memory_analysis()
+print("JSON", json.dumps({
+    "temp_size_in_bytes": m.temp_size_in_bytes,
+    "argument_size_in_bytes": m.argument_size_in_bytes,
+    "collective_bytes": analyze_compiled(compiled)["collective_bytes"]}))
+"""
+TRAIN44_ARCHS = ("llama3-8b", "zamba2-1.2b")
+
+
+@pytest.fixture(scope="module", params=TRAIN44_ARCHS)
+def train44(request):
+    """One of ``chip_smoke.py``'s phase-16 train cells (16 x 128 tokens in
+    2 microbatches on a 4x4 mesh: the reduced llama3-8b at vocab 16,384,
+    the reduced zamba2-1.2b): ``repro`` compiled on 16 placeholder devices
+    on ``make_host_mesh((4, 4))``, the port's ``TRAIN44_PRICING`` on a fake
+    16-rank group."""
+    sys.path.insert(0, os.path.dirname(SRC))
+    import chip_smoke
+
+    arch = request.param
+    c = json.dumps({"arch": arch,
+                    "vocab_size": chip_smoke.TRAIN44_CELLS[arch]["vocab_size"],
+                    **chip_smoke.TRAIN44_SHAPE})
+    ref = last_json(run_with_devices(
+        f"import sys; sys.argv[1:] = [{c!r}]\n" + REPRO_TRAIN44,
+        n_devices=16))
+    got = last_json(run_port(
+        f"import sys; sys.argv[1:] = [{c!r}, 'cpu']\n"
+        + chip_smoke.TRAIN44_PRICING))
+    return chip_smoke, arch, ref, got
+
+
+def test_train_cell_4x4_temp_within_1_5x_of_repros(train44):
+    """The port's sharded train step allocates at most 1.5x the temp
+    bytes a device of ``repro``'s compiled step (the vocab-parallel cross
+    entropy and embedding keep each rank at its own rows and vocabulary
+    shard; each layer gathers its weights' FSDP shards), with the
+    arguments equal."""
+    smoke, arch, ref, got = train44
+    print(arch, "port", got["temp_size_in_bytes"], got["collective_bytes"],
+          "repro", ref["temp_size_in_bytes"], ref["collective_bytes"])
+    assert got["argument_size_in_bytes"] == ref["argument_size_in_bytes"]
+    assert got["temp_size_in_bytes"] <= \
+        smoke.TRAIN44_TEMP_RATIO * ref["temp_size_in_bytes"]
+    assert smoke.TRAIN44_TEMP_RATIO == 1.5
+
+
+def test_train_cell_4x4_holds_no_whole_vocabulary(train44):
+    """No op of the cell's record makes a buffer whose last dimension is
+    the whole vocabulary (16,384 for llama3-8b)."""
+    _, _, _, got = train44
+    assert got["whole_vocab_ops"] == []
+
+
+def test_train_cell_4x4_repro_temp_is_the_smokes_constant(train44):
+    """The card's machine has no JAX, so phase 16 holds the port to
+    constants: ``repro``'s compiled temp bytes for each cell, pinned
+    here."""
+    smoke, arch, ref, _ = train44
+    assert ref["temp_size_in_bytes"] == smoke.TRAIN44_CELLS[arch]["repro_temp"]

@@ -388,3 +388,27 @@ def test_dryrun_phase_rehearsal(monkeypatch):
     r = chip_smoke.matmul_and_copy_rates(
         torch, "cpu", shapes=dict(matmul=64, copy_bytes=1 << 16))
     assert r["matmul_flops_per_s"] > 0 and r["copy_bytes_per_s"] > 0
+
+
+# ------------------------------------------------ the dry run's device
+def test_dryrun_defaults_to_the_card_and_never_falls_back(tmp_path,
+                                                          monkeypatch):
+    """``--device`` and ``run_cell``'s ``device`` default to ``cuda``; with
+    no card and the CPU not asked for, the run raises with a message that
+    names ``--device cpu`` and writes nothing (no fallback to the CPU)."""
+    import inspect
+
+    from repro_torch.launch import dryrun
+
+    assert inspect.signature(dryrun.run_cell).parameters["device"].default \
+        == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "dr"
+    for argv in (["--arch", "gemma-2b", "--shape", "decode_32k"],
+                 ["--all", "--jobs", "2"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            dryrun.main(argv + ["--out", str(out)])
+    with pytest.raises(RuntimeError, match="no card"):
+        dryrun.run_cell("gemma-2b", "decode_32k", False, str(out))
+    assert not out.exists()
+    assert dryrun.check_device("cpu") == "cpu"

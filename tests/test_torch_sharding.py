@@ -282,3 +282,38 @@ def test_entry_points_default_to_the_card():
     for fn, arg in ((make_host_mesh, "device"), (make_production_mesh, "device"),
                     (restore_elastic, "target_shardings")):
         assert inspect.signature(fn).parameters[arg].default == "cuda", fn
+
+
+def test_gather_fsdp_gathers_the_embed_shards_in_the_compute_dtype(
+        fake_world):
+    """``ShardingCtx.gather_fsdp`` under the train profile: a weight sharded
+    on ``embed`` over "data" (FSDP) and on ``ff`` over "model" comes back
+    replicated over "data", still sharded over "model", cast to the
+    compute dtype unless its name is kept; a weight with no "data" shard,
+    a plain tensor, and anything under ``NULL_CTX`` or the no-FSDP train
+    profile come back as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = fake_world["dm"]
+    ctx = ShardingCtx(mesh, make_profile("train"))
+
+    def dt(placements, local_shape):
+        return DTensor.from_local(torch.zeros(local_shape), mesh, placements,
+                                  run_check=False)
+
+    w = dt([Shard(0), Shard(1)], (64, 128))
+    norm = dt([Shard(0), Replicate()], (64,))
+    heads = dt([Replicate(), Shard(1)], (64, 128))
+    plain = torch.zeros(3)
+    out = ctx.gather_fsdp({"w": w, "norm": norm, "heads": heads,
+                           "plain": plain}, torch.bfloat16, ("norm",))
+    assert list(out["w"].placements) == [Replicate(), Shard(1)]
+    assert out["w"].dtype == torch.bfloat16
+    assert out["w"].to_local().shape == (128, 128)
+    assert list(out["norm"].placements) == [Replicate(), Replicate()]
+    assert out["norm"].dtype == torch.float32
+    assert out["heads"] is heads and out["plain"] is plain
+    assert ctx.gather_fsdp(w).dtype == torch.float32
+    assert NULL_CTX.gather_fsdp({"w": w})["w"] is w
+    no_fsdp = ShardingCtx(mesh, make_profile("train", fsdp=False))
+    assert no_fsdp.gather_fsdp(w, torch.bfloat16) is w
