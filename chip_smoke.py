@@ -173,14 +173,30 @@ Run from the root of a checkout:
    must not beat 4x the per-rank roofline bound (four ranks share the
    card).  (c) The card's bf16 torch.matmul rate at 8192^3 and a 4 GiB
    device copy's bytes a second, beside the roofline's constants; a
-   reading over 105% of a constant fails.  (d) In parallel with (a), two
+   reading over 105% of a constant fails.  (d) In parallel with (a), three
    sharded train steps on a (4, 4) fake mesh, 16 x 128 tokens in 2
-   microbatches (reduced llama3-8b at vocab 16,384; reduced zamba2-1.2b):
-   each dry-runs, takes at most 1.5x repro's compiled temp bytes a device
-   (26,958,600; 11,047,360) and has no op holding the whole vocabulary as
-   its last dimension; their bytes and collective bytes are logged.
+   microbatches (reduced llama3-8b at vocab 16,384; reduced zamba2-1.2b;
+   reduced rwkv6-1.6b): each dry-runs, takes at most 1.5x repro's compiled
+   temp bytes a device (26,958,600; 11,047,360; 6,790,144) and 1.5x its
+   collective bytes, at most 1.1x its dot FLOPs (zamba2 1.5x, rwkv6 1.2x:
+   ROADMAP C15), and has no op holding the whole vocabulary as a
+   dimension; and
+   a decode step of the reduced llama3-8b (vocab 16,384, 16 rows of a
+   128-slot cache) makes no op of the whole vocabulary and at most 1.5x
+   repro's 2,509,840 collective bytes.
+17. Examples phase: examples/quickstart_torch.py,
+   distributed_search_torch.py (8 gloo ranks sharing the card),
+   rag_serve_torch.py and train_lm_torch.py at their defaults (the sizes of
+   the repro examples they port), as four subprocesses on the card at
+   once: each exits 0, loads no module of the JAX package and prints a
+   result that is held: GATE recall@10 at least the medoid's at every
+   beam, the merged distributed result the same bits as its
+   single-process composition, the RAG batch's k distinct rows and every
+   token generated with finite logits, one injected crash survived and
+   the loss falling.  Their kernel launches are counted in each
+   subprocess and added to the kernels line.
 
-Phases 3, 5-6 and 8-16 are each driven with the kernel launch counts set
+Phases 3, 5-6 and 8-17 are each driven with the kernel launch counts set
 to 0 just before and read just after.  Each phase's kernel-launch
 requirement:
    phase 3        K4 (topk_min), K5 (l2dist), K6 (gather_dist)
@@ -192,6 +208,8 @@ requirement:
    phases 11-13   K1, K3
    phases 14-15   none (their counts are logged)
    phase 16       none (its counts are logged)
+   phase 17       none (counted in each example's process, added to the
+                  kernels line)
 Every check that fails raises, so the script exits non-zero and prints no
 result.  The last line is the JSON result object; the line before it is
 the card's name and power limit, and the one before that lists every
@@ -1652,7 +1670,7 @@ def attention_check(torch, np, model, params, tokens) -> float:
     with torch.no_grad():
         x = model._embed_tokens(params, tokens, NULL_CTX)
         B, S, _ = x.shape
-        pos = model._positions(B, S, x.device)
+        pos = model._positions(x)
         p0 = model._layer(params, 0)
         q, k, v = model._attn_proj_qkv(
             p0, rms_norm(x, p0["attn_norm"], cfg.norm_eps), pos, NULL_CTX)
@@ -1708,7 +1726,7 @@ def layerwise_decode_check(torch, model, params, tokens) -> float:
         x = model._embed_tokens(params, tokens, NULL_CTX)
         B, S1, _ = x.shape
         S = S1 - 1
-        pos = model._positions(B, S1, x.device)
+        pos = model._positions(x)
         t = torch.full((B,), S, dtype=torch.int32, device=x.device)
         worst = 0.0
         for i in range(model.cfg.num_layers):
@@ -3256,17 +3274,37 @@ RATE_SHAPES = dict(matmul=8192, copy_bytes=4 << 30)
 DRYRUN_TIMEOUT_S = 300
 # sharded train steps on a (4, 4) fake mesh, 16 rows of 128 tokens in 2
 # microbatches: the reduced llama3-8b at a vocabulary of 16,384 (logits
-# sharded on the vocabulary) and the reduced zamba2-1.2b (its causal conv's
-# backward on a sharded DTensor); each with ``repro``'s compiled temp bytes
+# sharded on the vocabulary), the reduced zamba2-1.2b (its causal conv's
+# backward on a sharded DTensor) and the reduced rwkv6-1.6b (the WKV scan);
+# each with ``repro``'s compiled temp bytes, collective bytes and dot FLOPs
 # a device (XLA on 16 CPU placeholder devices; tests/test_torch_cells.py
-# compiles them and holds them to these numbers)
+# compiles them and holds them to these numbers) and the most dot FLOPs
+# the port may take beside ``repro``'s (where the reduced widths make
+# products the port runs whole on every "model" rank a large share:
+# zamba2-1.2b's Mamba backward on the CPU's torch, rwkv6-1.6b's time-mix
+# LoRAs; ROADMAP C15)
 TRAIN44_CELLS = {
-    "llama3-8b": dict(vocab_size=16384, repro_temp=26_958_600),
-    "zamba2-1.2b": dict(vocab_size=None, repro_temp=11_047_360),
+    "llama3-8b": dict(vocab_size=16384, repro_temp=26_958_600,
+                      repro_coll=33_679_296, repro_dot=2_147_483_648,
+                      dot_ratio=1.1),
+    "zamba2-1.2b": dict(vocab_size=None, repro_temp=11_047_360,
+                        repro_coll=25_573_632, repro_dot=936_968_192,
+                        dot_ratio=1.5),
+    "rwkv6-1.6b": dict(vocab_size=None, repro_temp=6_790_144,
+                       repro_coll=20_363_296, repro_dot=755_204_096,
+                       dot_ratio=1.2),
 }
 TRAIN44_SHAPE = dict(seq=128, batch=16, micro=2, mesh=(4, 4))
-# the most temp bytes the port's steps may take beside ``repro``'s
+# the most temp and collective bytes the port's steps may take beside
+# ``repro``'s
 TRAIN44_TEMP_RATIO = 1.5
+TRAIN44_COLL_RATIO = 1.5
+# one decode step of the reduced llama3-8b at a vocabulary of 16,384 on the
+# (4, 4) fake mesh, 16 rows of a 128-slot cache, with ``repro``'s compiled
+# collective bytes a device: the lookup and the head keep the vocabulary
+# sharded (no op makes the whole table)
+DECODE44_CELL = dict(arch="llama3-8b", vocab_size=16384, seq=128, batch=16,
+                     mesh=(4, 4), kind="decode", repro_coll=2_509_840)
 
 PHASE15_PRICING = """
 import dataclasses, json, sys, torch
@@ -3301,7 +3339,7 @@ print("JSON", json.dumps(roofline_row(rec)))
 """
 
 
-TRAIN44_PRICING = """
+CELL44_PRICING = """
 import dataclasses, json, sys
 from repro_torch.configs import get_reduced
 from repro_torch.configs.base import ShapeSpec
@@ -3316,17 +3354,22 @@ cfg = get_reduced(c["arch"])
 if c["vocab_size"]:
     cfg = cfg.with_(vocab_size=c["vocab_size"])
 V = cfg.vocab_size
-cell = build_cell(cfg, ShapeSpec("train_4k", "train", c["seq"], c["batch"]),
-                  mesh, num_microbatches=c["micro"])
+kind = c.get("kind", "train")
+shape = ShapeSpec(f"{kind}_44", kind, c["seq"], c["batch"])
+cell = build_cell(cfg, shape, mesh, num_microbatches=c.get("micro"))
 tr = lower_cell(cell)
 h = tr.cost_analysis()
 def shapes(spec):
     if spec and isinstance(spec[1], str):
         return [spec[0]]
     return [s for x in spec or [] for s in shapes(x)]
-# ops whose outputs have the whole vocabulary as their last dimension
+# ops whose outputs have the whole vocabulary as a dimension (where the
+# cell sets a vocabulary no other dimension has; else as the last one)
+def whole_vocab(s):
+    return V in s if c["vocab_size"] else s[-1] == V
 whole = sorted({r[0] for run in tr.runs for r in run if r[1] == "op"
-                and any(s and s[-1] == V for o in r[2] for s in shapes(o))})
+                and any(s and whole_vocab(s) for o in r[2]
+                        for s in shapes(o))})
 print("JSON", json.dumps({**dataclasses.asdict(tr.memory_analysis()),
                           "collective_bytes": h["collective_bytes"],
                           "collectives": h["collectives"],
@@ -3397,7 +3440,7 @@ def matmul_and_copy_rates(torch, dev, shapes=None) -> dict:
 
 def dryrun_phase(torch, np, dev, phase15_step_s: float,
                  cells=DRYRUN_CELLS, p15=PHASE15_CELL,
-                 train44=TRAIN44_CELLS) -> dict:
+                 train44=TRAIN44_CELLS, decode44=DECODE44_CELL) -> dict:
     """Phase 16: (a) ``python -m repro_torch.launch.dryrun`` for each of
     ``cells`` on the 16x16 fake mesh (fake tensors on ``dev``'s type), in
     parallel subprocesses: every one exits 0 with ``ok``, its argument
@@ -3412,8 +3455,12 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
     fails.  (d) Beside (a), each of ``train44``'s sharded train steps on
     its fake mesh (``TRAIN44_SHAPE``): it dry-runs, its temp bytes a
     device at most ``TRAIN44_TEMP_RATIO`` times ``repro``'s compiled ones,
-    and no op has the whole vocabulary as its last dimension; its bytes
-    and collective bytes logged."""
+    its collective bytes at most ``TRAIN44_COLL_RATIO`` times and its dot
+    FLOPs at most the cell's ``dot_ratio`` times ``repro``'s, and no op has
+    the whole vocabulary as a dimension; and ``decode44``'s decode step:
+    it dry-runs, makes no op of the whole vocabulary and moves at most
+    ``TRAIN44_COLL_RATIO`` times ``repro``'s collective bytes; the bytes
+    and collective bytes of each logged."""
     from repro_torch.launch import gate_cell, roofline
     from repro_torch.configs import get_config, SHAPES
 
@@ -3436,11 +3483,16 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
             text=True, env=env, cwd=ROOT)
         for arch, c in train44.items():
             procs[f"train44:{arch}"] = subprocess.Popen(
-                [sys.executable, "-c", TRAIN44_PRICING, json.dumps(
+                [sys.executable, "-c", CELL44_PRICING, json.dumps(
                     {"arch": arch, "vocab_size": c["vocab_size"],
                      **TRAIN44_SHAPE}), dev.type],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 env=env, cwd=ROOT)
+        if decode44 is not None:
+            procs["decode44"] = subprocess.Popen(
+                [sys.executable, "-c", CELL44_PRICING, json.dumps(decode44),
+                 dev.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env, cwd=ROOT)
         # (c) on the card while the dry runs keep the host busy
         rates = (matmul_and_copy_rates(torch, dev) if dev.type == "cuda"
                  else None)
@@ -3522,12 +3574,40 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
             f"({ratio:.3f}x repro's compiled {c['repro_temp']}); collective "
             f"bytes {t44['collective_bytes']:.0f} "
             f"{json.dumps(t44['collectives'])}")
+        t44["coll_vs_repro"] = coll = \
+            t44["collective_bytes"] / c["repro_coll"]
+        t44["dot_vs_repro"] = dot = t44["dot_flops"] / c["repro_dot"]
+        log(f"phase 16: {arch} train step: collective bytes {coll:.3f}x "
+            f"repro's {c['repro_coll']}, dot FLOPs {t44['dot_flops']:.0f} "
+            f"({dot:.3f}x repro's {c['repro_dot']})")
         require(ratio <= TRAIN44_TEMP_RATIO,
                 f"phase 16: the {arch} train cell's temp is {ratio:.3f}x "
                 f"repro's (limit {TRAIN44_TEMP_RATIO})")
+        require(coll <= TRAIN44_COLL_RATIO,
+                f"phase 16: the {arch} train cell's collective bytes are "
+                f"{coll:.3f}x repro's (limit {TRAIN44_COLL_RATIO})")
+        require(dot <= c["dot_ratio"],
+                f"phase 16: the {arch} train cell's dot FLOPs are {dot:.3f}x "
+                f"repro's (limit {c['dot_ratio']})")
         require(not t44["whole_vocab_ops"],
                 f"phase 16: the {arch} train cell holds the whole "
                 f"vocabulary in {t44['whole_vocab_ops']}")
+    d44 = None
+    if decode44 is not None:
+        d44 = json.loads([ln for ln in done["decode44"].splitlines()
+                          if ln.startswith("JSON ")][-1][5:])
+        d44["coll_vs_repro"] = coll = \
+            d44["collective_bytes"] / decode44["repro_coll"]
+        log(f"phase 16: {decode44['arch']} decode step on a "
+            f"{decode44['mesh']} fake mesh: collective bytes "
+            f"{d44['collective_bytes']:.0f} ({coll:.3f}x repro's "
+            f"{decode44['repro_coll']}) {json.dumps(d44['collectives'])}")
+        require(not d44["whole_vocab_ops"],
+                f"phase 16: the decode cell makes the whole vocabulary in "
+                f"{d44['whole_vocab_ops']}")
+        require(coll <= TRAIN44_COLL_RATIO,
+                f"phase 16: the decode cell's collective bytes are "
+                f"{coll:.3f}x repro's (limit {TRAIN44_COLL_RATIO})")
 
     if rates is not None:
         log(f"phase 16: bf16 matmul {rates['matmul_flops_per_s'] / 1e12:.1f}"
@@ -3543,11 +3623,114 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
     return {"cells": checks, "roofline": rows, "phase15": {
         "step_s": phase15_step_s, "per_rank_bound_s": per_rank,
         "bound_x4_s": 4 * per_rank, "row": p15_row},
-        "train44": t44s,
+        "train44": t44s, "decode44": d44,
         "rates": rates, "constants": {
             "peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW,
             "link_bw": roofline.LINK_BW, "hbm_gib": roofline.HBM_GIB},
         "dryrun_s": dryrun_s, "seconds": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the port's four examples
+# ---------------------------------------------------------------------------
+
+# each example at its own defaults (the sizes of the ``repro`` example it
+# ports), run on the card in a subprocess of its own, all four at once
+EXAMPLES17 = {
+    "quickstart": ("examples/quickstart_torch.py", []),
+    "distributed_search": ("examples/distributed_search_torch.py", []),
+    "rag_serve": ("examples/rag_serve_torch.py", []),
+    "train_lm": ("examples/train_lm_torch.py", []),
+}
+EXAMPLES17_TIMEOUT_S = 300
+# runs an example as ``__main__`` with the launch counts at 0, then prints
+# its counts and the modules of the JAX package it loaded (none allowed)
+EXAMPLE_RUN = """
+import json, runpy, sys
+sys.path.insert(0, "src")
+import repro_torch.kernels as K
+sys.argv = sys.argv[1:]
+K.reset_launch_counts()
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("LAUNCHES", json.dumps(K.launch_counts()))
+print("LOADED", json.dumps(sorted(m for m in sys.modules
+                                  if m.split(".")[0] in ("repro", "jax"))))
+"""
+
+
+def _example_checks(name: str, res: dict) -> None:
+    """Each example's printed result, held: GATE's recall at least the
+    medoid's at every beam; the distributed merge the same bits as its
+    single-process composition on every rank; the RAG batch retrieved k
+    distinct rows a request and generated every token with finite logits;
+    the training run survived its crash and its loss fell."""
+    if name == "quickstart":
+        for bw, g, b in zip(res["beams"], res["gate_recall"],
+                            res["nsg_recall"]):
+            require(g >= b, f"phase 17: quickstart at beam {bw}: GATE "
+                    f"recall@10 {g:.4f} under the medoid's {b:.4f}")
+    elif name == "distributed_search":
+        require(res["ranks_agree"] and res["equal_single_process"],
+                "phase 17: the distributed search differs from its "
+                "single-process composition")
+    elif name == "rag_serve":
+        require(res["logits_finite"] and all(
+            len(set(r)) == res["k"] for r in res["retrieved"])
+            and all(len(t) == res["steps"] for t in res["tokens"]),
+            "phase 17: the RAG example's retrieval or generation is off")
+    elif name == "train_lm":
+        require(res["restarts"] == 1 and res["final_step"] == res["steps"],
+                f"phase 17: training ended at {res['final_step']} after "
+                f"{res['restarts']} restarts")
+        require(res["losses"][-1] < res["losses"][0],
+                "phase 17: the training loss did not fall")
+
+
+def examples_phase(dev, examples=EXAMPLES17) -> dict:
+    """Phase 17: the port's four ``examples/*_torch.py`` as subprocesses
+    on the card, all at once: each exits 0, loads no module of the JAX
+    package and prints a result ``_example_checks`` holds.  Returns each
+    result, the kernel launches each made (summed in ``launches``) and the
+    phase's wall seconds."""
+    t0 = time.perf_counter()
+    env = _dryrun_env()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", EXAMPLE_RUN, path, "--device", dev.type,
+         *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=ROOT) for name, (path, argv) in examples.items()}
+    out, launches = {}, {}
+    try:
+        deadline = time.monotonic() + EXAMPLES17_TIMEOUT_S
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=max(deadline - time.monotonic(),
+                                               1.0))
+            require(p.returncode == 0,
+                    f"phase 17: {name} exited {p.returncode}:\n"
+                    f"{so[-3000:]}\n{se[-3000:]}")
+            lines = so.splitlines()
+
+            def tagged(tag):
+                return json.loads([ln for ln in lines
+                                   if ln.startswith(tag + " ")][-1]
+                                  [len(tag) + 1:])
+            require(tagged("LOADED") == [],
+                    f"phase 17: {name} loaded {tagged('LOADED')}")
+            res = tagged("RESULT")
+            _example_checks(name, res)
+            counts = tagged("LAUNCHES")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            out[name] = {"result": res, "launches": counts}
+            log(f"phase 17: {name}: " + json.dumps(
+                {k: v for k, v in res.items()
+                 if k not in ("tokens", "retrieved", "losses")}))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {"examples": out, "launches": launches,
+            "seconds": time.perf_counter() - t0}
 
 
 CSRC = "src/repro_torch/csrc/"
@@ -3578,7 +3761,7 @@ def _at_shape(rec: dict) -> dict:
 def kernels_line(kres, api, hop, launches, serve_launches,
                  feedback_launches, single, greedy, ablation_launches=None,
                  rag_launches=None, moe_rag_launches=None,
-                 recurrent_rag_launches=None) -> list:
+                 recurrent_rag_launches=None, example_launches=None) -> list:
     """One entry per kernel for the line before the last: K1 and K2 at the
     10,000-query search's own calls (hop phase) with their fixed (1024, 32)
     rows beside them, and K1 at the single-query search's (1, R) calls
@@ -3587,7 +3770,9 @@ def kernels_line(kres, api, hop, launches, serve_launches,
     beside them; K6 at bench_kernels.py's; ``greedy_assign`` (port-only)
     at its 20,000-row slice with the 1M root split beside it (``greedy``).
     K1-K3 count their launches on the search, serve, feedback, ablation
-    and the three RAG paths, ``greedy_assign`` on the ablation path."""
+    and the three RAG paths, ``greedy_assign`` on the ablation path; every
+    kernel adds its launches in phase 17's examples (``example_launches``,
+    where given)."""
     extra = {"ablations": ablation_launches or {}, "rag": rag_launches or {},
              "rag_moe": moe_rag_launches or {},
              "rag_recurrent": recurrent_rag_launches or {}}
@@ -3625,6 +3810,8 @@ def kernels_line(kres, api, hop, launches, serve_launches,
             for path, counts in extra.items():
                 if counts:
                     by_path[path] = counts.get(name, 0)
+        if example_launches is not None:
+            by_path["examples"] = example_launches.get(name, 0)
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -3980,9 +4167,18 @@ def main(argv=None) -> int:
         + json.dumps(dry_launches))
     log(f"phase 16: {dry['seconds']:.1f} s")
 
+    # 17. the port's four examples on the card, as subprocesses; their
+    # launches are counted in each subprocess and added to the line
+    gc.collect()
+    torch.cuda.empty_cache()
+    ex = examples_phase(dev)
+    log("launches in the examples: " + json.dumps(ex["launches"]))
+    log(f"phase 17: {ex['seconds']:.1f} s")
+
     line = kernels_line(kres, api, hop, launches, serve_launches,
                         fb_launches, single, greedy, abl_launches,
-                        rag_launches, moe_rag_launches, rec_rag_launches)
+                        rag_launches, moe_rag_launches, rec_rag_launches,
+                        ex["launches"])
     record = {
         "card": smi, "n": args.n, "queries": args.queries,
         "timing_floor_ms": floor_ms,
@@ -4005,6 +4201,7 @@ def main(argv=None) -> int:
         "train": train, "train_launches": train_launches,
         "partitioned": part, "partitioned_launches": part_launches,
         "dryrun": dry, "dryrun_launches": dry_launches,
+        "examples": ex,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

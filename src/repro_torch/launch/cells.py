@@ -130,6 +130,53 @@ class Loops:
                     M[r] = [a - f * b for a, b in zip(M[r], M[c])]
         return [M[i][n] for i in range(n)]
 
+    def peak(self, runs: List[Dict]) -> int:
+        """The temporaries' peak at the full trip counts from the runs'
+        (``temp``, and ``held``, the carried state's peak net of the
+        outputs, as ``temp`` is the peak net of them).
+
+        A peak is a maximum over the run's phases, not a sum, so the
+        affine weights do not apply: a run's peak may sit in a transient
+        of one trip where the full run's sits in the state the loop
+        carries, and the weights of products of loops (±2,500 at 88 layers
+        × 32 microbatches) turn MBs of difference between runs into GBs.
+        Each loop's growth is fitted on its own (least squares over the
+        main-effect monomials, no product of two loops: a peak lies
+        within one trip of an outer loop), for the peak and for the held
+        state, and the steeper of the two is taken, never below 0; each
+        run plus that growth up to the full trips bounds the full run's
+        peak from above wherever every phase grows no faster, so the
+        least of them is taken, and never less than any run's."""
+        import numpy as np
+
+        main = [m for m in self.monomials if len(set(m)) <= 1]
+
+        def value(m, pt):
+            v = 1
+            for name in m:
+                v *= pt[name]
+            return v
+
+        A = np.array([[value(m, r["point"]) for m in main] for r in runs],
+                     dtype=np.float64)
+
+        def growth(key):
+            c = np.linalg.lstsq(A, np.array([r[key] for r in runs],
+                                            dtype=np.float64), rcond=None)[0]
+            out = []
+            for r in runs:
+                g = 0.0
+                for loop in self.full:
+                    g += max(0.0, sum(
+                        ci * (value(m, self.full) - value(m, r["point"]))
+                        for ci, m in zip(c, main) if m and m[0] == loop))
+                out.append(g)
+            return out
+
+        grow = [max(a, b) for a, b in zip(growth("temp"), growth("held"))]
+        bound = min(r["temp"] + g for r, g in zip(runs, grow))
+        return int(math.ceil(max(bound, max(r["temp"] for r in runs))))
+
 
 @dataclasses.dataclass
 class Cell:
@@ -425,13 +472,15 @@ class MemoryAnalysis:
 class CellTrace:
     """What ``lower_cell`` returns: each run's op record (``runs``), the
     weights that combine the runs into the cell's own trip counts, the
-    memory and the fallbacks the runs took."""
+    memory and the fallbacks the runs took, and each run's point, temp,
+    held state and largest buffers live at its peak (``peaks``)."""
 
     runs: List[list]
     weights: List[float]
     memory: MemoryAnalysis
     fallbacks: List[str]
     while_loops: List[Dict]
+    peaks: List[Dict] = dataclasses.field(default_factory=list)
 
     def memory_analysis(self) -> MemoryAnalysis:
         return self.memory
@@ -707,6 +756,8 @@ def _run(cell: Cell) -> Dict:
         "records": trace.records,
         "output": out_b,
         "temp": max(trace.peak_bytes - out_b, 0),
+        "held": trace.held_peak() - out_b,
+        "peak_live": trace.live_at_peak(),
         "alias": alias,
         "fallbacks": op_fallbacks,
         "ctx_fallbacks": list(cell.ctx.fallbacks),
@@ -719,11 +770,14 @@ def lower_cell(cell: Cell) -> CellTrace:
     (a "fake" one for the dry run: ``launch.dryrun.init_fake_world``)."""
     if cell.loops is None or cell.loops.full in cell.loops.points:
         runs, weights, loops = [_run(cell)], [Fraction(1)], []
+        temp = runs[0]["temp"]
     else:
         weights = cell.loops.weights()
-        runs = [_run(cell.loops.build(p)) for p in cell.loops.points]
+        runs = [{**_run(cell.loops.build(p)), "point": p}
+                for p in cell.loops.points]
         loops = [{"body": k, "trip": v}
                  for k, v in cell.loops.full.items()]
+        temp = cell.loops.peak(runs)
 
     def comb(key):
         return int(round(sum(w * r[key] for w, r in zip(weights, runs))))
@@ -731,7 +785,7 @@ def lower_cell(cell: Cell) -> CellTrace:
     memory = MemoryAnalysis(
         argument_size_in_bytes=argument_bytes(cell, runs[0]["used"]),
         output_size_in_bytes=comb("output"),
-        temp_size_in_bytes=max(comb("temp"), 0),
+        temp_size_in_bytes=temp,
         alias_size_in_bytes=comb("alias"),
     )
     fallbacks = list(runs[0]["ctx_fallbacks"])
@@ -743,6 +797,8 @@ def lower_cell(cell: Cell) -> CellTrace:
         memory=memory,
         fallbacks=fallbacks,
         while_loops=loops,
+        peaks=[{k: r.get(k) for k in ("point", "temp", "held", "output",
+                                      "peak_live")} for r in runs],
     )
     if len(runs) > 1:  # an extrapolation that leaves the affine regime
         bad = [k for k, v in traced.cost_analysis().items()

@@ -161,6 +161,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         with gzip.open(side, "wt") as f:
             json.dump(traced.to_json(), f, separators=(",", ":"))
         rec["fallbacks"] = cell.fallbacks + traced.fallbacks
+        rec["peaks"] = traced.peaks
         rec["ok"] = True
     except Exception as e:  # noqa: BLE001 — record and continue the sweep
         rec["error"] = f"{type(e).__name__}: {e}"

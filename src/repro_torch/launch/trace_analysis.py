@@ -128,6 +128,10 @@ COLLECTIVES = {
     ("_dtensor", "shard_dim_alltoall"): ("all-to-all", "out"),
 }
 
+# a buffer this many records old counts as held state (``held_peak``): a
+# loop's carried state outlives it, an op's transients mostly do not
+HELD_AGE = 128
+
 # ops that allocate or only describe: no bytes move
 FREE_OPS = frozenset((
     "empty", "empty_strided", "empty_like", "new_empty", "new_empty_strided",
@@ -186,7 +190,9 @@ class OpTrace(TorchDispatchMode):
     Ops on DTensors pass through (``NotImplemented``) to DTensor, whose
     local ops come back here; ops that touch no fake tensor (host
     arithmetic on small real ones) are not the rank's program.  Tracks the live bytes of the buffers the
-    ops allocate and their peak (``peak_bytes``)."""
+    ops allocate and their peak (``peak_bytes``), and each buffer's
+    lifetime in records (``allocs``: ``[allocated at, bytes, freed at]``,
+    freed at None while it lives) for ``held_peak``."""
 
     def __init__(self):
         super().__init__()
@@ -195,9 +201,44 @@ class OpTrace(TorchDispatchMode):
         self.live = 0
         self.peak_bytes = 0
         self.read = set()  # storages the ops read
+        self.allocs: List[list] = []
+        self.peak_at = 0  # the record at which the live bytes peaked
 
-    def _free(self, n: int) -> None:
-        self.live -= n
+    def _free(self, a: list) -> None:
+        self.live -= a[1]
+        a[2] = len(self.records)
+
+    def live_at_peak(self, n: int = 8) -> List[list]:
+        """The ``n`` largest groups of the buffers live at the peak, by
+        the op and output shapes that made them: ``[bytes, count, op,
+        shapes]``, largest first: what the peak is made of."""
+        groups = defaultdict(lambda: [0, 0])
+        for at, nbytes, freed in self.allocs:
+            if at <= self.peak_at and (freed is None or freed > self.peak_at):
+                rec = self.records[at - 1]
+                g = groups[(rec[0], str(rec[2]))]
+                g[0] += nbytes
+                g[1] += 1
+        rows = sorted(([b, k, op, shp] for (op, shp), (b, k)
+                       in groups.items()), reverse=True)
+        return rows[:n]
+
+    def held_peak(self, age: int = HELD_AGE) -> int:
+        """The most bytes live at once in buffers at least ``age`` records
+        old: the state a loop carries from trip to trip, without the
+        transients of the op at hand (outputs still live count in full)."""
+        end = len(self.records) + 1
+        delta = defaultdict(int)
+        for at, n, freed in self.allocs:
+            freed = end if freed is None else freed
+            if freed - at > age:
+                delta[at + age] += n
+                delta[freed] -= n
+        held = peak = 0
+        for t in sorted(delta):
+            held += delta[t]
+            peak = max(peak, held)
+        return peak
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -231,11 +272,21 @@ class OpTrace(TorchDispatchMode):
                              [_spec(t) for t in tensors],
                              [_spec(a) for a in args]])
         if kind == "op" and _allocates(func):
+            seen = set()
             for t in tensors:
-                n = _numel(t.shape) * t.element_size()
-                self.live += n
-                weakref.finalize(t, self._free, n)
-            self.peak_bytes = max(self.peak_bytes, self.live)
+                # a buffer lives as long as its storage: a detached alias
+                # (what a checkpoint saves) outlives the tensor that made it
+                st = t.untyped_storage()
+                if id(st) in seen:
+                    continue
+                seen.add(id(st))
+                a = [len(self.records), _numel(t.shape) * t.element_size(),
+                     None]
+                self.allocs.append(a)
+                self.live += a[1]
+                weakref.finalize(st, self._free, a)
+            if self.live > self.peak_bytes:
+                self.peak_bytes, self.peak_at = self.live, len(self.records)
         return out
 
 
@@ -366,3 +417,53 @@ def analyze_trace(trace: Dict) -> Dict:
     out = combine([analyze(r) for r in trace["runs"]], trace["weights"])
     out["while_loops"] = list(trace.get("while_loops", []))
     return out
+
+
+def top_ops(records: List[list], n: int = 10, collectives_only=True):
+    """The ``n`` largest (op, output shapes) groups of one run's record by
+    the bytes they move (a collective priced as ``analyze`` prices it, any
+    other op by its output bytes), largest first: ``[(bytes, count, op,
+    shapes)]``.  What the roofline's collective or memory term is made of."""
+    groups = defaultdict(lambda: [0.0, 0])
+    for name, kind, outs, args in records:
+        ns, _, base = name.partition("::")
+        c = COLLECTIVES.get((ns, base))
+        if kind != "op" or (collectives_only and c is None):
+            continue
+        size = float(spec_bytes(outs))
+        if c is not None:
+            ckind, on = c
+            size = float(spec_bytes(outs) if on == "out" else
+                         spec_bytes(args[0]) if on == "in" else
+                         spec_bytes(args[int(on[-1])]))
+            size *= 2.0 if ckind == "all-reduce" else 1.0
+        g = groups[(name, str(outs))]
+        g[0] += size
+        g[1] += 1
+    rows = sorted(((b, k, op, shp) for (op, shp), (b, k) in groups.items()),
+                  reverse=True)
+    return rows[:n]
+
+
+def main(argv=None) -> None:
+    """``python -m repro_torch.launch.trace_analysis FILE.trace.json.gz
+    [--top N] [--all-ops]``: the largest collectives (or ops) of the
+    sidecar's first run, by bytes."""
+    import argparse
+    import gzip
+    import json
+
+    ap = argparse.ArgumentParser(description=main.__doc__.split("\n")[0])
+    ap.add_argument("trace")
+    ap.add_argument("--top", type=int, default=10)
+    ap.add_argument("--all-ops", action="store_true")
+    args = ap.parse_args(argv)
+    with gzip.open(args.trace, "rt") as f:
+        trace = json.load(f)
+    for b, k, op, shp in top_ops(trace["runs"][0], args.top,
+                                 not args.all_ops):
+        print(f"{b:.4g}\t{k}\t{op}\t{shp}")
+
+
+if __name__ == "__main__":
+    main()

@@ -23,7 +23,7 @@ import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import (
     compute_local_shape_and_global_offset,
 )
@@ -233,6 +233,116 @@ def _pad_seq(x: torch.Tensor, pad: int, value=0) -> torch.Tensor:
     return F.pad(x, widths, value=value)
 
 
+def batch_local(like, ref: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """``like(ref, *args)`` (``torch.zeros_like`` / ``full_like``) as a
+    new contiguous tensor of ``ref``'s shape and dtype: a loop's carried
+    state (or a mask) built from the sharded input it meets, so a DTensor
+    ``ref``'s placements carry over.  A plain factory at the global shape
+    is replicated, and mixing it with batch-sharded operands gathers them
+    to the global batch.  On a plain tensor, ``torch.zeros`` /
+    ``torch.full`` at ``ref``'s shape, bit for bit."""
+    return like(ref, *args, memory_format=torch.contiguous_format, **kw)
+
+
+def positions_like(x: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    """(B, S) positions 0 … S-1 of a (B, S, …) tensor, laid out as its
+    first two dimensions are (``batch_local``)."""
+    while x.dim() > 2:
+        x = x[..., 0]
+    return batch_local(torch.zeros_like, x, dtype=dtype) \
+        + torch.arange(x.shape[1], dtype=dtype, device=x.device)
+
+
+# Attention and the chunked scans work on each (row, head) alone.  On a
+# DTensor sharded only over its rows and heads they run on each rank's own
+# shards, as GSPMD partitions them: DTensor's products flatten the row and
+# head dimensions into one batch dimension, and where both are sharded it
+# gathers one of them to the whole (the rows, on torch 2.11).
+
+def shard_roles(ref, head_dim: int):
+    """Per mesh dimension of the DTensor ``ref``: "batch" where it shards
+    dimension 0, "heads" where it shards ``head_dim`` (heads, or the
+    channels of a per-channel op), None where it is replicated; None for
+    any other layout (another dimension sharded, a pending sum), which the
+    caller leaves to DTensor."""
+    roles = []
+    for p in ref.placements:
+        if p.is_replicate():
+            roles.append(None)
+        elif type(p) is Shard and p.dim in (0, head_dim):
+            roles.append("batch" if p.dim == 0 else "heads")
+        else:
+            return None
+    return roles
+
+
+def _role_placements(roles, dims):
+    return [Shard(dims[r]) if dims.get(r) is not None else Replicate()
+            for r in roles]
+
+
+def to_shard(t, mesh, roles, dims) -> torch.Tensor:
+    """This rank's piece of ``t`` with each mesh dimension's role mapped by
+    ``dims`` to the dimension of ``t`` it shards (replicated where ``dims``
+    maps none; a plain tensor is taken as replicated).  Where ``t`` is
+    replicated but the work is split, each rank's gradient is a part of the
+    whole: it comes back as a pending sum."""
+    pl = _role_placements(roles, dims)
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    t = t.redistribute(mesh, pl)
+    return t.to_local(grad_placements=[
+        Partial() if r is not None and p.is_replicate() else p
+        for r, p in zip(roles, pl)])
+
+
+def from_shard(local, mesh, roles, dims, shape) -> DTensor:
+    """The DTensor of global ``shape`` whose rank's piece is ``local`` (made
+    contiguous, as the DTensor's strides say), laid out as ``to_shard``
+    lays out its inputs."""
+    return _from_rows(local.contiguous(), mesh, _role_placements(roles, dims),
+                      shape)
+
+
+def _attention_shards(q, k, v, pos_q, pos_k):
+    """(q, k, v, pos_q, pos_k, wrap) as this rank's pieces when the queries
+    are a DTensor sharded only over their rows and heads: the keys, values
+    and positions on the same rows, K / V cut to the heads this rank's
+    queries read (GQA: a whole group, or the one KV head of a part of a
+    group); ``wrap`` makes the output a DTensor laid out as the queries.
+    None for any other layout."""
+    roles = shard_roles(q, 2)
+    if roles is None:
+        return None
+    mesh = q.device_mesh
+    G = q.shape[2] // k.shape[2]
+    _, off = compute_local_shape_and_global_offset(q.shape, mesh,
+                                                    q.placements)
+    ql = q.to_local()
+    n, h0 = ql.shape[2], off[2]
+    kv_sharded = isinstance(k, DTensor) and "heads" in roles and all(
+        k.placements[i] == Shard(2) for i, r in enumerate(roles)
+        if r == "heads")
+    if kv_sharded and n % G == 0 and h0 % G == 0:
+        kv, kdims = slice(None), {"batch": 0, "heads": 2}
+    elif n % G == 0 and h0 % G == 0:
+        kv, kdims = slice(h0 // G, h0 // G + n // G), {"batch": 0}
+    elif G % n == 0 and h0 % n == 0:
+        kv, kdims = slice(h0 // G, h0 // G + 1), {"batch": 0}
+    else:
+        return None
+    kl, vl = (to_shard(t, mesh, roles, kdims)[:, :, kv] for t in (k, v))
+    pql, pkl = (to_shard(t, mesh, roles, {"batch": 0})
+                for t in (pos_q, pos_k))
+
+    def wrap(out):
+        return from_shard(out, mesh, roles, {"batch": 0, "heads": 2},
+                          tuple(q.shape))
+
+    return ql, kl, vl, pql, pkl, wrap
+
+
 def blockwise_attention(
     q: torch.Tensor,  # (B, Sq, Hq, D)
     k: torch.Tensor,  # (B, Sk, Hkv, D)
@@ -246,6 +356,8 @@ def blockwise_attention(
     q_chunk: Optional[int] = 512,
 ) -> torch.Tensor:
     """GQA/MQA blockwise attention; returns (B, Sq, Hq, D) in q.dtype.
+    Queries that are a DTensor sharded over their rows and heads attend on
+    each rank's shards (``_attention_shards``).
 
     An outer loop over QUERY chunks of ``q_chunk`` (the tail padded with
     ``pos_q = -1``, then sliced off) wraps an inner loop over KV chunks of
@@ -254,6 +366,13 @@ def blockwise_attention(
     model).  A fully masked query row (a pad row) ends as ``repro``'s does:
     the mean of the values.
     """
+    local = _attention_shards(q, k, v, pos_q, pos_k) \
+        if isinstance(q, DTensor) else None
+    if local is not None:
+        *args, wrap = local
+        return wrap(blockwise_attention(
+            *args, causal=causal, window=window, chunk=chunk,
+            q_chunk=q_chunk))
     if q_chunk is not None and q.shape[1] > q_chunk:
         Sq = q.shape[1]
         qc = int(q_chunk)
@@ -282,9 +401,12 @@ def blockwise_attention(
 
     at = acc_dtype(q.dtype)
     qf = (q.to(at) * scale).reshape(B, Sq, Hkv, G, D)
-    acc = torch.zeros((B, Hkv, G, Sq, D), dtype=at, device=q.device)
-    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=at, device=q.device)
-    l = torch.zeros((B, Hkv, G, Sq), dtype=at, device=q.device)
+    # the state is built from qf itself, so a sharded qf's batch (and head)
+    # shards carry over: a plain factory at the global shape would be
+    # replicated, and the K / V chunks gathered to the global batch to meet it
+    acc = batch_local(torch.zeros_like, qf.permute(0, 2, 3, 1, 4))
+    m = batch_local(torch.full_like, qf[..., 0].permute(0, 2, 3, 1), NEG_INF)
+    l = batch_local(torch.zeros_like, qf[..., 0].permute(0, 2, 3, 1))
     for s0 in range(0, Sk, chunk):
         k_c = k[:, s0:s0 + chunk].to(at)  # (B, c, Hkv, D)
         v_c = v[:, s0:s0 + chunk].to(at)
@@ -349,13 +471,19 @@ def cache_update(
     t: torch.Tensor,  # (B,) int32 current decode position
 ):
     """Ring-buffer single-token cache update (uniform across archs); returns
-    new tensors and leaves the inputs as they were."""
+    new tensors and leaves the inputs as they were.  The slot is selected
+    by a mask laid out as the cache is (``positions_like``): on a cache
+    sharded over its batch and sequence each rank writes its own slots,
+    where an index write by a global ``arange`` of rows gathers the cache
+    whole."""
     S = cache_k.shape[1]
     slot = (t % S).long()  # (B,)
-    b_idx = torch.arange(cache_k.shape[0], device=cache_k.device)
-    cache_k = cache_k.index_put((b_idx, slot), k_new[:, 0].to(cache_k.dtype))
-    cache_v = cache_v.index_put((b_idx, slot), v_new[:, 0].to(cache_v.dtype))
-    cache_pos = cache_pos.index_put((b_idx, slot), t.to(torch.int32))
+    hit = positions_like(cache_pos, torch.long) == slot[:, None]  # (B, S)
+    cache_k = torch.where(hit[..., None, None], k_new.to(cache_k.dtype),
+                          cache_k)
+    cache_v = torch.where(hit[..., None, None], v_new.to(cache_v.dtype),
+                          cache_v)
+    cache_pos = torch.where(hit, t[:, None].to(torch.int32), cache_pos)
     return cache_k, cache_v, cache_pos
 
 
@@ -461,21 +589,52 @@ class _VocabParallelEmbed(torch.autograd.Function):
         return grad, None, None, None, None, None
 
 
-def embed_rows(emb: torch.Tensor, tokens, vocab_parallel: bool = False):
-    """``emb[tokens]``.  With ``vocab_parallel`` (the loss path) and
-    ``emb`` a DTensor sharded on its vocabulary, the vocab-parallel lookup
+def _lookup_gathered(emb, tokens, lo, mesh, dims, gather_dims, placements):
+    """``_VocabParallelEmbed``'s forward for a table whose columns are
+    sharded (FSDP) and fewer tokens than its shard has rows (a decode
+    step): the tokens are gathered over the column-sharding mesh
+    dimensions that shard them, each rank looks them up in its own block
+    of rows and columns, and the rows' columns are gathered: the tokens'
+    bytes move, not the table's.  No backward."""
+    n_loc, pos = tokens.shape[0], 0
+    for d in reversed(gather_dims):  # the innermost mesh dim first
+        if placements[d].is_shard(0):
+            tokens = _wait(_all_gather_dim(tokens.contiguous(), 0,
+                                           (mesh, d)))
+    for d in gather_dims:  # this rank's block of the gathered rows
+        if placements[d].is_shard(0):
+            pos = pos * mesh.size(d) + mesh.get_local_rank(d)
+    idx = tokens.long() - lo
+    inside = (idx >= 0) & (idx < emb.shape[0])
+    rows = torch.where(inside[..., None], emb[torch.where(inside, idx, 0)],
+                       0.0)
+    for d in dims:
+        rows = _all_reduce(rows, "sum", mesh, d)
+    for d in reversed(gather_dims):
+        rows = _wait(_all_gather_dim(rows.movedim(-1, 0).contiguous(), 0,
+                                     (mesh, d))).movedim(0, -1)
+    return rows[pos * n_loc:(pos + 1) * n_loc]
+
+
+def embed_rows(emb: torch.Tensor, tokens):
+    """``emb[tokens]``.  With ``emb`` a DTensor sharded on its vocabulary
+    (every path: the loss, prefill and decode), the vocab-parallel lookup
     (``_VocabParallelEmbed``), sharded as the tokens' rows are: DTensor's
     own lookup gathers the whole table to every rank, and its backward
     scatters into a whole-table zeros.  The table's second dimension may
     be sharded evenly (FSDP); a mesh dimension that replicates the table
-    sums the ranks' gradients."""
+    sums the ranks' gradients.  Without a gradient and with fewer tokens
+    than a shard has rows, the tokens are gathered in the table's place
+    (``_lookup_gathered``), also where the vocabulary stays whole (one
+    the mesh does not divide) but the columns are sharded."""
     tokens = torch.as_tensor(tokens).to(emb.device)
-    dims = _vocab_dims(emb, 0) if vocab_parallel else ()
-    if not dims:
+    dims = _vocab_dims(emb, 0)
+    gather_dims = tuple(i for i, p in enumerate(emb.placements)
+                        if p.is_shard(1)) \
+        if isinstance(emb, DTensor) and isinstance(tokens, DTensor) else ()
+    if not dims and not gather_dims:
         return emb[tokens.long()]
     mesh = emb.device_mesh
-    gather_dims = tuple(i for i, p in enumerate(emb.placements)
-                        if p.is_shard(1))
     rows = [Replicate() if i in dims else p
             for i, p in enumerate(tokens.placements)]
     tokens = tokens.redistribute(mesh, rows)
@@ -484,9 +643,74 @@ def embed_rows(emb: torch.Tensor, tokens, vocab_parallel: bool = False):
     # each rank's gradient is its own rows' part of the table's
     local = emb.to_local(grad_placements=[
         Partial() if p.is_replicate() else p for p in emb.placements])
-    out = _VocabParallelEmbed.apply(local, tokens.to_local(), offset[0],
-                                    mesh, dims, gather_dims)
+    t_loc = tokens.to_local()
+    n_tok = t_loc.numel() * int(np.prod(
+        [mesh.size(d) for d in gather_dims if rows[d].is_shard(0)]))
+    if gather_dims and n_tok < local.shape[0] and not (
+            torch.is_grad_enabled() and emb.requires_grad):
+        out = _lookup_gathered(local, t_loc, offset[0], mesh, dims,
+                               gather_dims, rows)
+    elif not dims:  # many tokens: DTensor's lookup gathers the columns
+        return emb[tokens.long()]
+    else:
+        out = _VocabParallelEmbed.apply(local, t_loc, offset[0], mesh, dims,
+                                        gather_dims)
     return _from_rows(out, mesh, rows, tuple(tokens.shape) + emb.shape[1:])
+
+
+def head_logits(x: torch.Tensor, head: torch.Tensor, ctx=NULL_CTX):
+    """``x @ head`` for the LM head (d, V), its FSDP shards gathered first
+    (``ShardingCtx.gather_fsdp``), as the loss path needs them.  Without a
+    gradient and with fewer rows than a shard of the head has columns (a
+    decode step), the rows are gathered in the head's place
+    (``_rows_times_head``): the rows' bytes move, not the head's."""
+    if isinstance(x, DTensor) and isinstance(head, DTensor) and not (
+            torch.is_grad_enabled()
+            and (x.requires_grad or head.requires_grad)):
+        out = _rows_times_head(x, head)
+        if out is not None:
+            return out
+    return x @ ctx.gather_fsdp(head)
+
+
+def _rows_times_head(x: DTensor, head: DTensor):
+    """Each rank multiplies every row the FSDP dimensions hold (gathered)
+    by its own block of the head's rows and columns; the partial sums are
+    reduce-scattered back to each rank's rows (all-reduced where the rows
+    are not split), in ``x``'s dtype.  None where the layouts do not fit
+    (the rows split on another dimension, the head's rows whole) or the
+    head moves fewer bytes."""
+    mesh = head.device_mesh
+    fsdp = [i for i, p in enumerate(head.placements) if p.is_shard(0)]
+    last = x.ndim - 1
+    x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                              for p in x.placements])  # a pending sum
+    if not fsdp or any(not (p.is_replicate() or p.is_shard(0))
+                       for p in x.placements) or any(
+            not (p.is_replicate() or p.is_shard(0) or p.is_shard(1))
+            for p in head.placements) or any(
+            x.placements[i].is_shard() and head.placements[i].is_shard(1)
+            for i in range(mesh.ndim)):
+        return None
+    split = [d for d in fsdp if x.placements[d].is_shard(0)]
+    xl, hl = x.to_local(), head.to_local()
+    n = xl.shape[0] * int(np.prod([mesh.size(d) for d in split]))
+    if n * int(np.prod(xl.shape[1:last])) >= hl.shape[1]:
+        return None
+    n_loc, pos = xl.shape[0], 0
+    for d in reversed(split):  # the innermost mesh dim first
+        xl = _wait(_all_gather_dim(xl.contiguous(), 0, (mesh, d)))
+    _, off = compute_local_shape_and_global_offset(head.shape, mesh,
+                                                    head.placements)
+    part = xl[..., off[0]:off[0] + hl.shape[0]] @ hl
+    for d in fsdp:
+        part = (_wait(_reduce_scatter_dim(part.contiguous(), "sum", 0,
+                                          (mesh, d))) if d in split
+                else _all_reduce(part, "sum", mesh, d))
+    placements = [Shard(last) if hp.is_shard(1) else xp
+                  for xp, hp in zip(x.placements, head.placements)]
+    return _from_rows(part, mesh, placements,
+                      tuple(x.shape[:-1]) + (head.shape[1],))
 
 
 def _from_rows(local: torch.Tensor, mesh, placements, shape) -> DTensor:

@@ -33,7 +33,9 @@ from repro_torch.models.common import (
     cache_update,
     decode_attention,
     embed_rows,
+    positions_like,
     glu_mlp,
+    head_logits,
     next_token_ce,
     remat,
     rms_norm,
@@ -140,8 +142,8 @@ class EncDecLM(FlatParamsLM):
                        self.cfg.mlp_act, ctx)
 
     @staticmethod
-    def _positions(B: int, S: int, device) -> torch.Tensor:
-        return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+    def _positions(x: torch.Tensor) -> torch.Tensor:
+        return positions_like(x)
 
     def _encode(self, params, frames, ctx, loss: bool = False):
         """Returns (the normed encoder output, its positions)."""
@@ -149,8 +151,7 @@ class EncDecLM(FlatParamsLM):
         dt = torch_dtype(cfg.compute_dtype)
         x = torch.as_tensor(frames, device=params["tok_embed"].device).to(dt)
         x = ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
-        B, S, _ = x.shape
-        pos = self._positions(B, S, x.device)
+        pos = self._positions(x)
 
         def body(x, p_l):
             if loss:  # the loss path: the weights' FSDP shards gathered
@@ -164,10 +165,10 @@ class EncDecLM(FlatParamsLM):
             x = remat(cfg, body, x, self._stack(params, "enc", i))
         return rms_norm(x, params["enc_final_norm"], cfg.norm_eps), pos
 
-    def _embed(self, params, tokens, loss: bool = False):
-        """The tokens' rows (vocab-parallel on the loss path)."""
+    def _embed(self, params, tokens):
+        """The tokens' rows (vocab-parallel on a vocab-sharded table)."""
         emb = params["tok_embed"].to(torch_dtype(self.cfg.compute_dtype))
-        return embed_rows(emb, tokens, vocab_parallel=loss)
+        return embed_rows(emb, tokens)
 
     def _dec_layer(self, p_l, x, pos, enc_out, enc_pos, ctx):
         """One decoder layer over the full sequence.  Returns (x, self K / V,
@@ -186,11 +187,9 @@ class EncDecLM(FlatParamsLM):
         """Returns (the normed decoder output, positions, ((k, v), (xk, xv))
         stacked over the layers, or None)."""
         cfg = self.cfg
-        x = ctx.constrain(self._embed(params, tokens,
-                                      loss=not collect_caches),
+        x = ctx.constrain(self._embed(params, tokens),
                           ("act_batch", "act_seq", "act_embed"))
-        B, S, _ = x.shape
-        pos = self._positions(B, S, x.device)
+        pos = self._positions(x)
         ks, vs, xks, xvs = [], [], [], []
         for i in range(cfg.num_layers):
             p_l = self._stack(params, "dec", i)
@@ -213,8 +212,8 @@ class EncDecLM(FlatParamsLM):
 
     def _logits(self, params, x, ctx: ShardingCtx = NULL_CTX):
         """The LM head's logits, its FSDP shards gathered first under
-        ``ctx`` (the loss path's)."""
-        return x @ ctx.gather_fsdp(params["lm_head"].to(x.dtype))
+        ``ctx`` (every path's)."""
+        return head_logits(x, params["lm_head"].to(x.dtype), ctx)
 
     # --------------------------------------------------------------------- API
     def loss(self, params, batch, ctx: ShardingCtx = NULL_CTX):
@@ -245,7 +244,7 @@ class EncDecLM(FlatParamsLM):
         x, pos, ((ks, vs), (xks, xvs)) = self._decoder_full(
             params, batch["tokens"], enc_out, enc_pos, ctx,
             collect_caches=True)
-        logits = self._logits(params, x[:, -1:])[:, 0]
+        logits = self._logits(params, x[:, -1:], ctx)[:, 0]
         S = pos.shape[1]
         C = max(capacity or S, S)
         if C > S:  # decode headroom on the self-attention cache
@@ -294,6 +293,6 @@ class EncDecLM(FlatParamsLM):
             ks.append(ck)
             vs.append(cv)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self._logits(params, x)[:, 0]
+        logits = self._logits(params, x, ctx)[:, 0]
         return logits, dict(cache, k=torch.stack(ks), v=torch.stack(vs),
                             pos=cp)

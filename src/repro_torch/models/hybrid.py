@@ -17,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
@@ -30,7 +31,9 @@ from repro_torch.models.common import (
     cache_update,
     decode_attention,
     embed_rows,
+    positions_like,
     glu_mlp,
+    head_logits,
     next_token_ce,
     remat,
     rms_norm,
@@ -48,7 +51,28 @@ from repro_torch.models.transformer import TensorSpec
 def _mamba_residual(p_l, x, cfg, ctx):
     """The loss path's Mamba block, on the weights' FSDP shards gathered."""
     p_l = ctx.gather_fsdp(p_l, x.dtype, MAMBA_KEEP)
-    return x + mamba_block_full(p_l, x, cfg, ctx)[0]
+    return _settled(x + mamba_block_full(p_l, x, cfg, ctx)[0], ctx)
+
+
+def _heads_as(wq, w):
+    """A K / V projection ``w`` (d, H, hd) sharded on its heads as ``wq``
+    is (a local slice where ``w`` is replicated; its other shards kept):
+    with ``kv_heads`` unsharded, every "model" rank would project K and V
+    for every head, and attention only reads its own (K and V have the
+    queries' head count here)."""
+    if not isinstance(wq, DTensor) or not isinstance(w, DTensor):
+        return w
+    return w.redistribute(w.device_mesh, [
+        qp if isinstance(qp, Shard) and qp.dim == 1 else wp
+        for qp, wp in zip(wq.placements, w.placements)])
+
+
+def _settled(x, ctx):
+    """``x`` (B, S, d) laid out as the residual stream is: an output
+    projection leaves a sum pending over its shards, which the next norm
+    would otherwise settle as a reduce-scatter over the sequence that every
+    later op gathers back."""
+    return ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
 
 
 class HybridLM(FlatParamsLM):
@@ -101,10 +125,10 @@ class HybridLM(FlatParamsLM):
             {k: v for k, v in params.items() if k.startswith("s_")},
             torch_dtype(self.cfg.compute_dtype), self.KEEP)}
 
-    def _embed(self, params, tokens, loss: bool = False):
-        """The tokens' rows (vocab-parallel on the loss path)."""
+    def _embed(self, params, tokens):
+        """The tokens' rows (vocab-parallel on a vocab-sharded table)."""
         emb = params["tok_embed"].to(torch_dtype(self.cfg.compute_dtype))
-        return embed_rows(emb, tokens, vocab_parallel=loss)
+        return embed_rows(emb, tokens)
 
     # ------------------------------------------------------------ shared block
     def _shared_qkv(self, params, h, pos):
@@ -115,9 +139,11 @@ class HybridLM(FlatParamsLM):
         def proj(w):
             return (h @ w.to(dt).reshape(d, -1)).reshape(B, S, *w.shape[1:])
 
-        q = apply_rope(proj(params["s_wq"]), pos, cfg.rope_theta)
-        k = apply_rope(proj(params["s_wk"]), pos, cfg.rope_theta)
-        return q, k, proj(params["s_wv"])
+        wq = params["s_wq"]
+        q = apply_rope(proj(wq), pos, cfg.rope_theta)
+        k = apply_rope(proj(_heads_as(wq, params["s_wk"])), pos,
+                       cfg.rope_theta)
+        return q, k, proj(_heads_as(wq, params["s_wv"]))
 
     def _shared_out(self, params, x, a, ctx):
         """The attention output ``a`` (B, S, H, hd) projected and added to
@@ -125,7 +151,7 @@ class HybridLM(FlatParamsLM):
         cfg = self.cfg
         B, S, d = x.shape
         wo = params["s_wo"].to(x.dtype)
-        x = x + a.reshape(B, S, -1) @ wo.reshape(-1, d)
+        x = _settled(x + a.reshape(B, S, -1) @ wo.reshape(-1, d), ctx)
         h2 = rms_norm(x, params["s_mlp_norm"], cfg.norm_eps)
         return x + glu_mlp(h2, params["s_w_gate"], params["s_w_up"],
                            params["s_w_down"], "swiglu", ctx)
@@ -151,11 +177,9 @@ class HybridLM(FlatParamsLM):
     # ------------------------------------------------------------------ modes
     def _forward_full(self, params, tokens, ctx, want_caches: bool):
         cfg = self.cfg
-        x = ctx.constrain(self._embed(params, tokens,
-                                      loss=not want_caches),
+        x = ctx.constrain(self._embed(params, tokens),
                           ("act_batch", "act_seq", "act_embed"))
-        B, S, _ = x.shape
-        pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+        pos = positions_like(x)
         kvs, ssm_states, conv_states = [], [], []
         k_conv = cfg.conv_kernel
         for i in range(cfg.num_layers):
@@ -173,7 +197,7 @@ class HybridLM(FlatParamsLM):
             h_t = rms_norm(tail, p_l["m_norm"], cfg.norm_eps)
             conv_states.append(h_t @ p_l["wx"].to(tail.dtype))
             out, h_fin = mamba_block_full(p_l, x, cfg, ctx)
-            x = x + out
+            x = _settled(x + out, ctx)
             ssm_states.append(h_fin)
             if shared:
                 x, kv = self._shared_full(params, x, pos, ctx)
@@ -210,7 +234,7 @@ class HybridLM(FlatParamsLM):
         x, pos, (ks, vs, ssm, conv) = self._forward_full(
             params, batch["tokens"], ctx, True)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-        logits = (x @ params["lm_head"].to(x.dtype))[:, 0]
+        logits = head_logits(x, params["lm_head"].to(x.dtype), ctx)[:, 0]
         S = pos.shape[1]
         C = max(capacity or S, S)
         if C > S:  # decode headroom: empty slots marked pos = -1
@@ -262,7 +286,7 @@ class HybridLM(FlatParamsLM):
                 new_v.append(cv)
                 app += 1
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = (x @ params["lm_head"].to(x.dtype))[:, 0]
+        logits = head_logits(x, params["lm_head"].to(x.dtype), ctx)[:, 0]
         return logits, {
             "k": torch.stack(new_k), "v": torch.stack(new_v), "pos": cp,
             "ssm": torch.stack(new_ssm), "conv": torch.stack(new_conv),

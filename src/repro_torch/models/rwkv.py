@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models.common import (
@@ -30,10 +31,15 @@ from repro_torch.models.common import (
     Params,
     _pad_seq,
     acc_dtype,
+    batch_local,
     embed_rows,
+    from_shard,
+    head_logits,
     next_token_ce,
     remat,
     rms_norm,
+    shard_roles,
+    to_shard,
     torch_dtype,
 )
 from repro_torch.models.transformer import TensorSpec
@@ -65,7 +71,19 @@ def wkv6_chunked(
     S0: Optional[torch.Tensor] = None,  # (B, H, hd, hd) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, H, hd) in r's dtype, final state (B, H, hd, hd)
-    in float32, or float64 for float64 inputs)."""
+    in float32, or float64 for float64 inputs).  ``r`` a DTensor sharded
+    over its rows and heads: each rank scans its own (``shard_roles``)."""
+    roles = shard_roles(r, 2) if isinstance(r, DTensor) else None
+    if roles is not None:
+        mesh, bh, st = r.device_mesh, {"batch": 0, "heads": 2}, \
+            {"batch": 0, "heads": 1}
+        B, S, H, hd = r.shape
+        y, s = wkv6_chunked(
+            *(to_shard(t, mesh, roles, bh) for t in (r, k, v, logw)),
+            to_shard(u, mesh, roles, {"heads": 0}), chunk,
+            None if S0 is None else to_shard(S0, mesh, roles, st))
+        return (from_shard(y, mesh, roles, bh, (B, S, H, hd)),
+                from_shard(s, mesh, roles, st, (B, H, hd, hd)))
     B, S, H, hd = r.shape
     Q = int(min(chunk, S))
     S_orig = S
@@ -76,7 +94,8 @@ def wkv6_chunked(
     at = acc_dtype(r.dtype)
     rf, kf, vf, lw = (a.to(at) for a in (r, k, v, logw))
     uf = u.to(at)
-    Sst = (torch.zeros((B, H, hd, hd), dtype=at, device=r.device)
+    Sst = (batch_local(torch.zeros_like,
+                       rf[:, 0, :, :, None].expand(B, H, hd, hd))
            if S0 is None else S0)
     # i <= j, the entries the strict past (i > j) leaves at 0: (Q, 1, Q, 1)
     not_past = torch.ones(Q, Q, dtype=torch.bool,
@@ -125,7 +144,14 @@ def wkv6_step(r, k, v, logw, u, Sst):
 
 def _shift(h: torch.Tensor) -> torch.Tensor:
     """The token shift: each position's previous normed input, zeros at
-    the first."""
+    the first; on a DTensor sharded over its rows and channels, each rank
+    shifts its own (torch 2.11's DTensor has no strategy for the pad and
+    gathers the whole tensor)."""
+    roles = shard_roles(h, 2) if isinstance(h, DTensor) else None
+    if roles is not None:
+        dims = {"batch": 0, "heads": 2}
+        return from_shard(_shift(to_shard(h, h.device_mesh, roles, dims)),
+                          h.device_mesh, roles, dims, tuple(h.shape))
     return F.pad(h[:, :-1], (0, 0, 1, 0))
 
 
@@ -186,10 +212,11 @@ class RWKVLM(FlatParamsLM):
     def _layer(self, params: Params, i: int) -> Params:
         return {n: params[n][i] for n in self._layer_names()}
 
-    def _embed(self, params, tokens, loss: bool = False):
-        """The tokens' rows (vocab-parallel on the loss path), normed."""
+    def _embed(self, params, tokens):
+        """The tokens' rows (vocab-parallel on a vocab-sharded table),
+        normed."""
         emb = params["tok_embed"].to(torch_dtype(self.cfg.compute_dtype))
-        x = embed_rows(emb, tokens, vocab_parallel=loss)
+        x = embed_rows(emb, tokens)
         return rms_norm(x, params["ln0"], self.cfg.norm_eps)
 
     # -------------------------------------------------------------- time mix
@@ -239,7 +266,12 @@ class RWKVLM(FlatParamsLM):
         r, k, v, logw, g = self.wkv_inputs(p, h, _shift(h))
         y, S_fin = wkv6_chunked(r, k, v, logw, p["u"], self.cfg.rwkv_chunk,
                                 S0)
-        return self._tmix_out(p, x, y, g), S_fin, h[:, -1]
+        # the output projection leaves a sum pending over the heads' shards:
+        # settled here (an all-reduce), or the next norm settles it as a
+        # reduce-scatter over the sequence that every later op gathers back
+        x = ctx.constrain(self._tmix_out(p, x, y, g),
+                          ("act_batch", "act_seq", "act_embed"))
+        return x, S_fin, h[:, -1]
 
     # ------------------------------------------------------------ channel mix
     def _channel_mix(self, p, h, h_prev, ctx=NULL_CTX):
@@ -267,7 +299,7 @@ class RWKVLM(FlatParamsLM):
 
     # ------------------------------------------------------------------ modes
     def _forward_full(self, params, tokens, ctx, want_state: bool):
-        x = ctx.constrain(self._embed(params, tokens, loss=not want_state),
+        x = ctx.constrain(self._embed(params, tokens),
                           ("act_batch", "act_seq", "act_embed"))
         states = []
         for i in range(self.cfg.num_layers):
@@ -306,7 +338,7 @@ class RWKVLM(FlatParamsLM):
         x, (S_fin, sh_t, sh_c) = self._forward_full(params, batch["tokens"],
                                                     ctx, True)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-        logits = (x @ params["lm_head"].to(x.dtype))[:, 0]
+        logits = head_logits(x, params["lm_head"].to(x.dtype), ctx)[:, 0]
         return logits, {"wkv": S_fin, "shift_t": sh_t, "shift_c": sh_c}
 
     def cache_specs(self, batch: int, seq_len: int) -> Dict[str, TensorSpec]:
@@ -341,6 +373,6 @@ class RWKVLM(FlatParamsLM):
             sh_t.append(h[:, 0])
             sh_c.append(h2[:, 0])
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = (x @ params["lm_head"].to(x.dtype))[:, 0]
+        logits = head_logits(x, params["lm_head"].to(x.dtype), ctx)[:, 0]
         return logits, {"wkv": torch.stack(wkv), "shift_t": torch.stack(sh_t),
                         "shift_c": torch.stack(sh_c)}

@@ -18,10 +18,20 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
-from repro_torch.models.common import ParamSpec, _pad_seq, acc_dtype, rms_norm
+from repro_torch.models.common import (
+    ParamSpec,
+    _pad_seq,
+    acc_dtype,
+    batch_local,
+    from_shard,
+    rms_norm,
+    shard_roles,
+    to_shard,
+)
 
 # the Mamba block's weights ``repro`` reads in float32 (``rms_norm``'s
 # weight, the step bias and the decay rate)
@@ -60,7 +70,17 @@ def causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, S, C), w: (k, C).  Unrolled shifted-add causal conv: ``x``
     padded once by k - 1 at the front, each tap a slice of it (``repro``
     pads a slice a tap; the products and sums are the same, so are the
-    bits, and no slice of a sharded tensor is padded)."""
+    bits, and no slice of a sharded tensor is padded).  On a DTensor
+    sharded over its rows and channels each rank convolves its own
+    (torch 2.11's DTensor has no strategy for the pad and gathers the
+    whole tensor)."""
+    roles = shard_roles(x, 2) if isinstance(x, DTensor) else None
+    if roles is not None:
+        mesh, dims = x.device_mesh, {"batch": 0, "heads": 2}
+        return from_shard(causal_depthwise_conv(
+            to_shard(x, mesh, roles, dims),
+            to_shard(w, mesh, roles, {"heads": 1})), mesh, roles, dims,
+            tuple(x.shape))
     k, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = x * w[k - 1]
@@ -79,7 +99,21 @@ def ssd_chunked(
     h0: Optional[torch.Tensor] = None,  # (B, nh, hp, N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, nh, hp) in x's dtype, final state (B, nh, hp, N)
-    in float32, or float64 for float64 inputs)."""
+    in float32, or float64 for float64 inputs).  ``x`` a DTensor sharded
+    over its rows and heads: each rank scans its own (``shard_roles``)."""
+    roles = shard_roles(x, 2) if isinstance(x, DTensor) else None
+    if roles is not None:
+        mesh, bh, st = x.device_mesh, {"batch": 0, "heads": 2}, \
+            {"batch": 0, "heads": 1}
+        B, S, nh, hp = x.shape
+        N = Bm.shape[-1]
+        y, h = ssd_chunked(
+            to_shard(x, mesh, roles, bh), to_shard(dt, mesh, roles, bh),
+            to_shard(A, mesh, roles, {"heads": 0}),
+            *(to_shard(t, mesh, roles, {"batch": 0}) for t in (Bm, Cm)),
+            chunk, None if h0 is None else to_shard(h0, mesh, roles, st))
+        return (from_shard(y, mesh, roles, bh, (B, S, nh, hp)),
+                from_shard(h, mesh, roles, st, (B, nh, hp, N)))
     B, S, nh, hp = x.shape
     N = Bm.shape[-1]
     Q = int(min(chunk, S))
@@ -91,7 +125,8 @@ def ssd_chunked(
     at = acc_dtype(x.dtype)
     xf, dtf, Bf, Cf = (a.to(at) for a in (x, dt, Bm, Cm))
     da = dtf * A.to(at)  # (B, S, nh) <= 0
-    h = (torch.zeros((B, nh, hp, N), dtype=at, device=x.device)
+    h = (batch_local(torch.zeros_like,
+                     xf[:, 0, :, :, None].expand(B, nh, hp, N))
          if h0 is None else h0)
     past = ~torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()  # i < j
     ys = []

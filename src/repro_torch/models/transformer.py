@@ -42,7 +42,9 @@ from repro_torch.models.common import (
     cache_update,
     decode_attention,
     embed_rows,
+    positions_like,
     glu_mlp,
+    head_logits,
     next_token_ce,
     remat,
     rms_norm,
@@ -200,21 +202,21 @@ class DecoderLM(FlatParamsLM):
         return x + self._mlp(p, h2, ctx)[0], ck, cv, cp
 
     # ------------------------------------------------------------- embeddings
-    def _embed_tokens(self, params, tokens, ctx, loss: bool = False):
+    def _embed_tokens(self, params, tokens, ctx):
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
         emb = params["tok_embed"].to(dt)
-        x = embed_rows(emb, tokens, vocab_parallel=loss)
+        x = embed_rows(emb, tokens)
         if cfg.tie_embeddings:  # gemma-style embed scaling
             x = x * scalar_in(np.sqrt(cfg.d_model), dt)
         return ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
 
-    def _assemble_input(self, params, batch, ctx, loss: bool = False):
+    def _assemble_input(self, params, batch, ctx):
         """Token embeds (vocab-parallel on the loss path), with the VLM
         patch prefix when the batch has ``patches``.  Returns (x, labels),
         the labels (if any) padded with -1 on the patch positions."""
         cfg = self.cfg
-        x = self._embed_tokens(params, batch["tokens"], ctx, loss)
+        x = self._embed_tokens(params, batch["tokens"], ctx)
         labels = batch.get("labels")
         if labels is not None:
             labels = torch.as_tensor(labels, device=x.device)
@@ -230,18 +232,18 @@ class DecoderLM(FlatParamsLM):
                 labels = torch.cat([pad, labels], dim=1)
         return x, labels
 
-    def _logits(self, params, x, ctx, loss: bool = False):
-        """The LM head's logits; on the loss path its FSDP shards are
-        gathered first."""
+    def _logits(self, params, x, ctx):
+        """The LM head's logits, its FSDP shards gathered first (every
+        path: with the vocabulary sharded, each rank's logits stay on its
+        own vocabulary shard)."""
         dt = x.dtype
         head = (
             params["tok_embed"].to(dt).T
             if self.cfg.tie_embeddings
             else params["lm_head"].to(dt)
         )
-        if loss:
-            head = ctx.gather_fsdp(head)
-        return ctx.constrain(x @ head, ("act_batch", "act_seq", "act_vocab"))
+        return ctx.constrain(head_logits(x, head, ctx),
+                             ("act_batch", "act_seq", "act_vocab"))
 
     # ------------------------------------------------------------------ modes
     def _stack_full(self, params, x, pos, ctx, collect_kv: bool):
@@ -267,8 +269,8 @@ class DecoderLM(FlatParamsLM):
         return x, kvs, aux
 
     @staticmethod
-    def _positions(B: int, S: int, device) -> torch.Tensor:
-        return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+    def _positions(x: torch.Tensor) -> torch.Tensor:
+        return positions_like(x)
 
     def loss(self, params, batch, ctx: ShardingCtx = NULL_CTX):
         """Mean next-token cross entropy of ``batch["tokens"]`` against
@@ -276,13 +278,12 @@ class DecoderLM(FlatParamsLM):
         ``router_aux_coef`` times the layers' summed router aux term;
         returns (loss, {"ce", "aux"})."""
         cfg = self.cfg
-        x, labels = self._assemble_input(params, batch, ctx, loss=True)
-        B, S, _ = x.shape
+        x, labels = self._assemble_input(params, batch, ctx)
         x, _, aux = self._stack_full(params, x,
-                                     self._positions(B, S, x.device), ctx,
+                                     self._positions(x), ctx,
                                      collect_kv=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = self._logits(params, x, ctx, loss=True)
+        logits = self._logits(params, x, ctx)
         ce = next_token_ce(logits, labels)
         if aux is None:
             return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
@@ -297,8 +298,8 @@ class DecoderLM(FlatParamsLM):
         logits (B, V), cache)."""
         cfg = self.cfg
         x, _ = self._assemble_input(params, batch, ctx)
-        B, S, _ = x.shape
-        pos = self._positions(B, S, x.device)
+        S = x.shape[1]
+        pos = self._positions(x)
         x, (ks, vs), _ = self._stack_full(params, x, pos, ctx, collect_kv=True)
         x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x, ctx)[:, 0]

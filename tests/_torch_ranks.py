@@ -253,7 +253,7 @@ def vocab_parallel_ce_rank(rank, world, cases, embeds):
     arrays; returns per case and per loss the loss, the logits' whole
     gradient, the rank's shard of the logits and the shapes of the
     buffers every op of the loss and its backward made.  ``embeds`` maps a
-    name to (table, tokens, cotangent): ``embed_rows(vocab_parallel=True)``
+    name to (table, tokens, cotangent): ``embed_rows``
     of the table sharded as the train profile shards it, the rows and the
     table's gradient under ``sum(rows * cotangent)``, the same way."""
     import torch
@@ -319,9 +319,120 @@ def vocab_parallel_ce_rank(rank, world, cases, embeds):
         ct = distribute_tensor(torch.from_numpy(cot), mesh,
                                [Shard(0), Replicate()])
         with LocalShapes() as rec:
-            rows = embed_rows(emb, tk, vocab_parallel=True)
+            rows = embed_rows(emb, tk)
             (rows * ct).sum().backward()
         out[(name, "embed_rows")] = (rows.detach().full_tensor().numpy(),
                                      emb.grad.full_tensor().numpy(),
                                      emb.to_local().shape, rec.shapes)
+    return out
+
+
+def batch_local_state_rank(rank, world, cases):
+    """``blockwise_attention``, ``wkv6_chunked`` and ``ssd_chunked`` on
+    DTensors over a ("data", "model") mesh of ``(world // 2, 2)``, laid out
+    as the train cells lay them out, plain tensors taken as replicated as
+    the dry run takes them (``cases`` maps a name to the function's name,
+    its numpy arguments and each argument's placements as (mesh dim,
+    tensor dim or None) pairs); returns per case the outputs gathered
+    whole, the all-gathers the call made, as (input shape, output shape),
+    the floating arguments' gradients of the outputs' summed squares
+    gathered whole, and the all-gathers of that backward."""
+    import torch
+    from torch.distributed.tensor import (
+        DTensor, Replicate, Shard, distribute_tensor,
+    )
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common, rwkv, ssm
+
+    fns = {"blockwise_attention": common.blockwise_attention,
+           "wkv6_chunked": rwkv.wkv6_chunked, "ssd_chunked": ssm.ssd_chunked}
+
+    class Gathers(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if "all_gather" in func.name():
+                self.seen.append((tuple(args[0].shape), tuple(out.shape)))
+            return out
+
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for name, (fn, arrays, layouts, kw) in cases.items():
+        args = []
+        for a, lay in zip(arrays, layouts):
+            pl = [Replicate(), Replicate()]
+            for mesh_dim, dim in lay:
+                pl[mesh_dim] = Shard(dim)
+            t = distribute_tensor(torch.from_numpy(a), mesh, pl)
+            args.append(t.requires_grad_(t.dtype.is_floating_point))
+        with implicit_replication(), Gathers() as rec:
+            res = fns[fn](*args, **kw)
+        res = res if isinstance(res, tuple) else (res,)
+        with implicit_replication(), Gathers() as rec_b:
+            sum((r * r).sum() for r in res).backward()
+        out[name] = ([r.detach().full_tensor().numpy() for r in res],
+                     rec.seen,
+                     [None if a.grad is None else a.grad.full_tensor().numpy()
+                      for a in args], rec_b.seen)
+    return out
+
+
+def decode_lookup_head_rank(rank, world, cases):
+    """A decode step's token lookup and LM head without a gradient on
+    DTensors over a ("data", "model") mesh of ``(world // 2, 2)``: the
+    table (V, d) and the head (d, V) sharded over "data" on ``d`` (FSDP)
+    and, where ``whole_vocab`` is false, over "model" on the vocabulary;
+    the tokens (B, 1) and the rows (B, 1, d) over "data".  ``cases`` maps
+    a name to (table, tokens, head, x, whole_vocab); returns per case the
+    rows and logits gathered whole and the largest element count any
+    collective made."""
+    import torch
+    from torch.distributed.tensor import (
+        DTensor, Replicate, Shard, distribute_tensor,
+    )
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import embed_rows, head_logits
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "_c10d_functional":
+                for t in (out if isinstance(out, (list, tuple)) else (out,)):
+                    if isinstance(t, torch.Tensor):
+                        self.numel = max(self.numel, t.numel())
+            return out
+
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for name, (table, tokens, head, x, whole_vocab) in cases.items():
+        vocab = Replicate() if whole_vocab else None
+        emb = distribute_tensor(torch.from_numpy(table), mesh,
+                                [Shard(1), vocab or Shard(0)])
+        hd = distribute_tensor(torch.from_numpy(head), mesh,
+                               [Shard(0), vocab or Shard(1)])
+        tk = distribute_tensor(torch.from_numpy(tokens), mesh,
+                               [Shard(0), Replicate()])
+        xs = distribute_tensor(torch.from_numpy(x), mesh,
+                               [Shard(0), Replicate()])
+        with torch.no_grad(), Largest() as rec:
+            rows = embed_rows(emb, tk)
+            logits = head_logits(xs, hd)
+        out[name] = (rows.full_tensor().numpy(), logits.full_tensor().numpy(),
+                     rec.numel)
     return out

@@ -219,6 +219,21 @@ def test_train_loops_extrapolate_flops_exactly(extrapolated):
     assert mex["alias_size_in_bytes"] == mfull["alias_size_in_bytes"]
 
 
+@pytest.mark.parametrize("cell", ["llama3-8b:decode",
+                                  "seamless-m4t-medium:decode",
+                                  "llama3-8b:train"])
+def test_extrapolated_peak_bounds_the_full_runs(extrapolated, cell):
+    """The temporaries' peak at the cell's trips from runs at fewer (a peak
+    is a maximum, not affine in the loops: ``cells.Loops.peak``) is never
+    below the run of every trip and at most 1.25x it.  At the parent, the
+    affine weights put llama3-8b's decode at 2,087,936 bytes against the
+    full run's 2,096,128: its 2-layer run peaks in a layer's transient, the
+    others at the final stack of the caches."""
+    _, _, mex, mfull = extrapolated[cell]
+    full = mfull["temp_size_in_bytes"]
+    assert full <= mex["temp_size_in_bytes"] <= 1.25 * full, (mex, mfull)
+
+
 # ------------------------------------------------------------- roofline
 RECORD = {
     "arch": "llama3-8b", "shape": "train_4k", "mesh": "16x16",

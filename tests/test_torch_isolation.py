@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports ``jax`` or ``repro``, and the entry points run on
+"""The port stands alone: nothing under ``src/repro_torch/``, in
+``chip_smoke.py`` or in the port's four ``examples/*_torch.py`` imports
+``jax`` or ``repro``, and the entry points run on
 the card unless the caller asks for the CPU."""
 import ast
 import os
@@ -34,10 +35,15 @@ def _imported_modules(path: Path):
             yield node.lineno, str(node.args[0].value)
 
 
+EXAMPLES = ("quickstart_torch.py", "distributed_search_torch.py",
+            "rag_serve_torch.py", "train_lm_torch.py")
+
+
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
+    files += [ROOT / "examples" / name for name in EXAMPLES]
+    assert len(files) > 20 and all(f.exists() for f in files)
     bad = [
         f"{f.relative_to(ROOT)}:{line}: {mod}"
         for f in files for line, mod in _imported_modules(f)

@@ -13,7 +13,11 @@ import pytest
 import torch
 
 from repro_torch.models.common import cross_entropy, next_token_ce
-from tests._torch_ranks import run_ranks, vocab_parallel_ce_rank
+from tests._torch_ranks import (
+    decode_lookup_head_rank,
+    run_ranks,
+    vocab_parallel_ce_rank,
+)
 
 TOL = {"float32": 1e-6, "float64": 1e-12}
 
@@ -116,3 +120,39 @@ def test_vocab_parallel_embedding_is_one_process_lookup(ranks, case):
             np.abs(emb.grad.numpy()).max()
         assert err <= tol, (world, rank, err)
         assert shapes and all(s[0] != V for s in shapes if s), (world, rank)
+
+
+def _decode_case(V: int, whole_vocab: bool, seed: int):
+    """A (V, 6) table and (6, V) head in float64, 4 one-token rows with ids
+    on both edges of the vocabulary's shards, and the rows' (4, 1, 6)
+    activations."""
+    rng = np.random.default_rng(200 + seed)
+    tokens = np.array([[0], [V - 1], [-(-V // 2)], [-(-V // 2) - 1]])
+    return (rng.standard_normal((V, 6)), tokens,
+            rng.standard_normal((6, V)), rng.standard_normal((4, 1, 6)),
+            whole_vocab)
+
+
+DECODES = {f"V{V}-{'whole' if w else 'sharded'}": _decode_case(V, w, i)
+           for i, (V, w) in enumerate([(16, False), (15, False), (16, True),
+                                       (15, True)])}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_decode_lookup_and_head_gather_rows_not_the_table(world,
+                                                          tmp_path):
+    """A decode step's lookup and head without a gradient on 2 and 4 gloo
+    ranks: the rows equal ``table[tokens]`` and the logits ``x @ head``
+    (1e-12, float64), with the vocabulary sharded over "model" and whole
+    (one the mesh does not divide); no collective makes a tensor of the
+    table's or head's size (the tokens and rows are gathered in their
+    place)."""
+    outs = run_ranks(decode_lookup_head_rank, world, tmp_path, DECODES)
+    for name, (table, tokens, head, x, _) in DECODES.items():
+        for out in outs:
+            rows, logits, largest = out[name]
+            np.testing.assert_allclose(rows, table[tokens], rtol=1e-12,
+                                       atol=1e-12)
+            np.testing.assert_allclose(logits, x @ head, rtol=1e-12,
+                                       atol=1e-12)
+            assert largest < table.size, (name, largest)
