@@ -3275,14 +3275,21 @@ DRYRUN_TIMEOUT_S = 300
 # sharded train steps on a (4, 4) fake mesh, 16 rows of 128 tokens in 2
 # microbatches: the reduced llama3-8b at a vocabulary of 16,384 (logits
 # sharded on the vocabulary), the reduced zamba2-1.2b (its causal conv's
-# backward on a sharded DTensor) and the reduced rwkv6-1.6b (the WKV scan);
-# each with ``repro``'s compiled temp bytes, collective bytes and dot FLOPs
-# a device (XLA on 16 CPU placeholder devices; tests/test_torch_cells.py
-# compiles them and holds them to these numbers) and the most dot FLOPs
-# the port may take beside ``repro``'s (where the reduced widths make
-# products the port runs whole on every "model" rank a large share:
-# zamba2-1.2b's Mamba backward on the CPU's torch, rwkv6-1.6b's time-mix
-# LoRAs; ROADMAP C15)
+# backward on a sharded DTensor), the reduced rwkv6-1.6b (the WKV scan and
+# its LoRAs), the reduced mistral-large-123b at 4 rows (microbatches of 2
+# rows, which do not divide the 4-way "data" axis: the layer inputs the
+# remat holds) and the reduced seamless-m4t-medium at a vocabulary of 16,386
+# (which does not divide the 4-way "model" axis: the whole-vocabulary
+# cross entropy, whose logits may hold the whole vocabulary, as
+# ``repro``'s do); each with ``repro``'s compiled temp bytes, collective
+# bytes and dot FLOPs a device (XLA on 16 CPU placeholder devices;
+# tests/test_torch_cells.py and tests/test_torch_cells_excess.py compile
+# them and hold them to these numbers) and the most dot FLOPs the port may
+# take beside ``repro``'s (where the reduced widths make work the port runs
+# whole on every rank of an axis a large share: zamba2-1.2b's Mamba
+# backward on the CPU's torch; mistral's replicated rows on every "data"
+# rank and seamless's whole-vocabulary head on every "model" rank, which
+# XLA splits; ROADMAP C21)
 TRAIN44_CELLS = {
     "llama3-8b": dict(vocab_size=16384, repro_temp=26_958_600,
                       repro_coll=33_679_296, repro_dot=2_147_483_648,
@@ -3292,19 +3299,34 @@ TRAIN44_CELLS = {
                         dot_ratio=1.5),
     "rwkv6-1.6b": dict(vocab_size=None, repro_temp=6_790_144,
                        repro_coll=20_363_296, repro_dot=755_204_096,
-                       dot_ratio=1.2),
+                       dot_ratio=1.1),
+    "mistral-large-123b": dict(vocab_size=None, batch=4,
+                               repro_temp=2_072_200, repro_coll=13_886_088,
+                               repro_dot=228_589_568, dot_ratio=3.5),
+    "seamless-m4t-medium": dict(vocab_size=16386, whole_vocab=True,
+                                repro_temp=100_232_736,
+                                repro_coll=95_285_168,
+                                repro_dot=5_805_506_560, dot_ratio=1.6),
 }
 TRAIN44_SHAPE = dict(seq=128, batch=16, micro=2, mesh=(4, 4))
 # the most temp and collective bytes the port's steps may take beside
 # ``repro``'s
 TRAIN44_TEMP_RATIO = 1.5
 TRAIN44_COLL_RATIO = 1.5
-# one decode step of the reduced llama3-8b at a vocabulary of 16,384 on the
-# (4, 4) fake mesh, 16 rows of a 128-slot cache, with ``repro``'s compiled
-# collective bytes a device: the lookup and the head keep the vocabulary
-# sharded (no op makes the whole table)
-DECODE44_CELL = dict(arch="llama3-8b", vocab_size=16384, seq=128, batch=16,
-                     mesh=(4, 4), kind="decode", repro_coll=2_509_840)
+# one decode step on the (4, 4) fake mesh, 16 rows of a 128-slot cache,
+# with ``repro``'s compiled collective bytes a device: the reduced
+# llama3-8b at a vocabulary of 16,384 (the lookup and the head keep the
+# vocabulary sharded: no op makes the whole table), and the reduced
+# rwkv6-1.6b, zamba2-1.2b and seamless-m4t-medium (the recurrent states and
+# the self- and cross-attention over a cache split on its sequence, each
+# on its rank's shards)
+DECODE44_SHAPE = dict(seq=128, batch=16, mesh=(4, 4), kind="decode")
+DECODE44_CELLS = {
+    "llama3-8b": dict(vocab_size=16384, repro_coll=2_509_840),
+    "rwkv6-1.6b": dict(vocab_size=None, repro_coll=570_128),
+    "zamba2-1.2b": dict(vocab_size=None, repro_coll=529_424),
+    "seamless-m4t-medium": dict(vocab_size=None, repro_coll=462_352),
+}
 
 PHASE15_PRICING = """
 import dataclasses, json, sys, torch
@@ -3339,6 +3361,8 @@ print("JSON", json.dumps(roofline_row(rec)))
 """
 
 
+# one cell's job (a JSON object) or several on one mesh (a JSON list, run
+# in turn in one process): a "JSON" line for each, in order
 CELL44_PRICING = """
 import dataclasses, json, sys
 from repro_torch.configs import get_reduced
@@ -3346,37 +3370,56 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch.cells import build_cell, lower_cell
 from repro_torch.launch.dryrun import init_fake_world
 from repro_torch.launch.mesh import make_host_mesh
-c, dev = json.loads(sys.argv[1]), sys.argv[2]
-rows, cols = c["mesh"]
+jobs, dev = json.loads(sys.argv[1]), sys.argv[2]
+jobs = jobs if isinstance(jobs, list) else [jobs]
+rows, cols = jobs[0]["mesh"]
 init_fake_world(rows * cols)
 mesh = make_host_mesh((rows, cols), device=dev)
-cfg = get_reduced(c["arch"])
-if c["vocab_size"]:
-    cfg = cfg.with_(vocab_size=c["vocab_size"])
-V = cfg.vocab_size
-kind = c.get("kind", "train")
-shape = ShapeSpec(f"{kind}_44", kind, c["seq"], c["batch"])
-cell = build_cell(cfg, shape, mesh, num_microbatches=c.get("micro"))
-tr = lower_cell(cell)
-h = tr.cost_analysis()
 def shapes(spec):
     if spec and isinstance(spec[1], str):
         return [spec[0]]
     return [s for x in spec or [] for s in shapes(x)]
-# ops whose outputs have the whole vocabulary as a dimension (where the
-# cell sets a vocabulary no other dimension has; else as the last one)
-def whole_vocab(s):
-    return V in s if c["vocab_size"] else s[-1] == V
-whole = sorted({r[0] for run in tr.runs for r in run if r[1] == "op"
-                and any(s and whole_vocab(s) for o in r[2]
-                        for s in shapes(o))})
-print("JSON", json.dumps({**dataclasses.asdict(tr.memory_analysis()),
-                          "collective_bytes": h["collective_bytes"],
-                          "collectives": h["collectives"],
-                          "dot_flops": h["dot_flops"],
-                          "whole_vocab_ops": whole,
-                          "fallbacks": cell.fallbacks + tr.fallbacks}))
+for c in jobs:
+    cfg = get_reduced(c["arch"])
+    if c["vocab_size"]:
+        cfg = cfg.with_(vocab_size=c["vocab_size"])
+    V = cfg.vocab_size
+    kind = c.get("kind", "train")
+    shape = ShapeSpec(f"{kind}_44", kind, c["seq"], c["batch"])
+    cell = build_cell(cfg, shape, mesh, num_microbatches=c.get("micro"))
+    tr = lower_cell(cell)
+    h = tr.cost_analysis()
+    # ops whose outputs have the whole vocabulary as a dimension (where
+    # the cell sets a vocabulary no other dimension has; else as the last)
+    def whole_vocab(s):
+        return V in s if c["vocab_size"] else s[-1] == V
+    whole = sorted({r[0] for run in tr.runs for r in run if r[1] == "op"
+                    and any(s and whole_vocab(s) for o in r[2]
+                            for s in shapes(o))})
+    print("JSON", json.dumps({**dataclasses.asdict(tr.memory_analysis()),
+                              "collective_bytes": h["collective_bytes"],
+                              "collectives": h["collectives"],
+                              "dot_flops": h["dot_flops"],
+                              "whole_vocab_ops": whole,
+                              "fallbacks": cell.fallbacks + tr.fallbacks}),
+          flush=True)
 """
+
+
+def cell44_jobs(train44=TRAIN44_CELLS, decode44=DECODE44_CELLS) -> dict:
+    """``CELL44_PRICING``'s argument for each 4x4 cell, by its key in the
+    phase (``train44:ARCH``, ``decode44:ARCH``): a train cell at
+    ``TRAIN44_SHAPE`` (its own rows and microbatch count where it sets
+    them), a decode cell at ``DECODE44_SHAPE``."""
+    jobs = {f"train44:{a}": {"arch": a, "vocab_size": c["vocab_size"],
+                             **TRAIN44_SHAPE,
+                             **{k: c[k] for k in ("batch", "micro")
+                                if k in c}}
+            for a, c in train44.items()}
+    jobs.update({f"decode44:{a}": {"arch": a, "vocab_size": c["vocab_size"],
+                                   **DECODE44_SHAPE}
+                 for a, c in decode44.items()})
+    return jobs
 
 
 def _dryrun_env():
@@ -3440,7 +3483,7 @@ def matmul_and_copy_rates(torch, dev, shapes=None) -> dict:
 
 def dryrun_phase(torch, np, dev, phase15_step_s: float,
                  cells=DRYRUN_CELLS, p15=PHASE15_CELL,
-                 train44=TRAIN44_CELLS, decode44=DECODE44_CELL) -> dict:
+                 train44=TRAIN44_CELLS, decode44=DECODE44_CELLS) -> dict:
     """Phase 16: (a) ``python -m repro_torch.launch.dryrun`` for each of
     ``cells`` on the 16x16 fake mesh (fake tensors on ``dev``'s type), in
     parallel subprocesses: every one exits 0 with ``ok``, its argument
@@ -3457,10 +3500,12 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
     device at most ``TRAIN44_TEMP_RATIO`` times ``repro``'s compiled ones,
     its collective bytes at most ``TRAIN44_COLL_RATIO`` times and its dot
     FLOPs at most the cell's ``dot_ratio`` times ``repro``'s, and no op has
-    the whole vocabulary as a dimension; and ``decode44``'s decode step:
-    it dry-runs, makes no op of the whole vocabulary and moves at most
-    ``TRAIN44_COLL_RATIO`` times ``repro``'s collective bytes; the bytes
-    and collective bytes of each logged."""
+    the whole vocabulary as a dimension (but in a ``whole_vocab`` cell,
+    whose vocabulary the mesh does not divide); and each of ``decode44``'s
+    decode steps (``DECODE44_SHAPE``): it dry-runs, makes no op of the
+    whole vocabulary and moves at most ``TRAIN44_COLL_RATIO`` times
+    ``repro``'s collective bytes; the bytes and collective bytes of each
+    logged."""
     from repro_torch.launch import gate_cell, roofline
     from repro_torch.configs import get_config, SHAPES
 
@@ -3481,18 +3526,16 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
             [sys.executable, "-c", PHASE15_PRICING, json.dumps(p15),
              dev.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True, env=env, cwd=ROOT)
-        for arch, c in train44.items():
-            procs[f"train44:{arch}"] = subprocess.Popen(
-                [sys.executable, "-c", CELL44_PRICING, json.dumps(
-                    {"arch": arch, "vocab_size": c["vocab_size"],
-                     **TRAIN44_SHAPE}), dev.type],
+        # a process for each train cell, one for the decode cells in turn
+        jobs = cell44_jobs(train44, decode44)
+        groups = [[k] for k in jobs if k.startswith("train44:")] + [
+            [k for k in jobs if k.startswith("decode44:")]]
+        for keys in filter(None, groups):
+            procs[tuple(keys)] = subprocess.Popen(
+                [sys.executable, "-c", CELL44_PRICING,
+                 json.dumps([jobs[k] for k in keys]), dev.type],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 env=env, cwd=ROOT)
-        if decode44 is not None:
-            procs["decode44"] = subprocess.Popen(
-                [sys.executable, "-c", CELL44_PRICING, json.dumps(decode44),
-                 dev.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True, env=env, cwd=ROOT)
         # (c) on the card while the dry runs keep the host busy
         rates = (matmul_and_copy_rates(torch, dev) if dev.type == "cuda"
                  else None)
@@ -3507,6 +3550,11 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
             done[key] = so
         records = {c: json.loads((out_dir / f"{c[0]}__{c[1]}__16x16.json")
                                  .read_text()) for c in cells}
+        # each 4x4 cell's JSON line by its key
+        cell44 = {k: json.loads(ln[5:]) for keys, so in done.items()
+                  if isinstance(keys, tuple)
+                  for k, ln in zip(keys, [ln for ln in so.splitlines()
+                                          if ln.startswith("JSON ")])}
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -3562,13 +3610,13 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
 
     t44s = {}
     for arch, c in train44.items():
-        t44 = json.loads([ln for ln in done[f"train44:{arch}"].splitlines()
-                          if ln.startswith("JSON ")][-1][5:])
+        t44 = cell44[f"train44:{arch}"]
         t44["temp_vs_repro"] = ratio = \
             t44["temp_size_in_bytes"] / c["repro_temp"]
         t44s[arch] = t44
         log(f"phase 16: {arch} train step on a {TRAIN44_SHAPE['mesh']} fake "
-            f"mesh: argument / output / temp bytes a device "
+            f"mesh ({c.get('micro', TRAIN44_SHAPE['micro'])} microbatches): "
+            f"argument / output / temp bytes a device "
             f"{t44['argument_size_in_bytes']} / "
             f"{t44['output_size_in_bytes']} / {t44['temp_size_in_bytes']} "
             f"({ratio:.3f}x repro's compiled {c['repro_temp']}); collective "
@@ -3589,24 +3637,23 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
         require(dot <= c["dot_ratio"],
                 f"phase 16: the {arch} train cell's dot FLOPs are {dot:.3f}x "
                 f"repro's (limit {c['dot_ratio']})")
-        require(not t44["whole_vocab_ops"],
+        require(c.get("whole_vocab") or not t44["whole_vocab_ops"],
                 f"phase 16: the {arch} train cell holds the whole "
                 f"vocabulary in {t44['whole_vocab_ops']}")
-    d44 = None
-    if decode44 is not None:
-        d44 = json.loads([ln for ln in done["decode44"].splitlines()
-                          if ln.startswith("JSON ")][-1][5:])
+    d44s = {}
+    for arch, c in decode44.items():
+        d44s[arch] = d44 = cell44[f"decode44:{arch}"]
         d44["coll_vs_repro"] = coll = \
-            d44["collective_bytes"] / decode44["repro_coll"]
-        log(f"phase 16: {decode44['arch']} decode step on a "
-            f"{decode44['mesh']} fake mesh: collective bytes "
-            f"{d44['collective_bytes']:.0f} ({coll:.3f}x repro's "
-            f"{decode44['repro_coll']}) {json.dumps(d44['collectives'])}")
+            d44["collective_bytes"] / c["repro_coll"]
+        log(f"phase 16: {arch} decode step on a {DECODE44_SHAPE['mesh']} "
+            f"fake mesh: collective bytes {d44['collective_bytes']:.0f} "
+            f"({coll:.3f}x repro's {c['repro_coll']}) "
+            f"{json.dumps(d44['collectives'])}")
         require(not d44["whole_vocab_ops"],
-                f"phase 16: the decode cell makes the whole vocabulary in "
-                f"{d44['whole_vocab_ops']}")
+                f"phase 16: the {arch} decode cell makes the whole "
+                f"vocabulary in {d44['whole_vocab_ops']}")
         require(coll <= TRAIN44_COLL_RATIO,
-                f"phase 16: the decode cell's collective bytes are "
+                f"phase 16: the {arch} decode cell's collective bytes are "
                 f"{coll:.3f}x repro's (limit {TRAIN44_COLL_RATIO})")
 
     if rates is not None:
@@ -3623,7 +3670,7 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
     return {"cells": checks, "roofline": rows, "phase15": {
         "step_s": phase15_step_s, "per_rank_bound_s": per_rank,
         "bound_x4_s": 4 * per_rank, "row": p15_row},
-        "train44": t44s, "decode44": d44,
+        "train44": t44s, "decode44": d44s,
         "rates": rates, "constants": {
             "peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW,
             "link_bw": roofline.LINK_BW, "hbm_gib": roofline.HBM_GIB},

@@ -45,6 +45,10 @@ P = PartitionSpec
 # Profiles
 # ---------------------------------------------------------------------------
 
+# the mesh axes an activation's rows (batch) are sharded over
+ROW_RULE = ("pod", "data")
+
+
 def _base_rules() -> Dict[str, AxisRule]:
     return {
         # -- parameter logical axes ------------------------------------------
@@ -62,7 +66,7 @@ def _base_rules() -> Dict[str, AxisRule]:
         "norm": None,
         "patch": None,
         # -- activation logical axes -----------------------------------------
-        "act_batch": ("pod", "data"),
+        "act_batch": ROW_RULE,
         "act_seq": None,
         "act_embed": None,
         "act_heads": "model",
@@ -242,7 +246,8 @@ class ShardingCtx:
             return x.redistribute(self.mesh, placements(self.mesh, spec))
         return x
 
-    def gather_fsdp(self, params, dtype=None, keep: Sequence[str] = ()):
+    def gather_fsdp(self, params, dtype=None, keep: Sequence[str] = (),
+                    tp_only: bool = False):
         """A weight, or a dict of a layer's weights, for the loss path:
         each DTensor's shards on the mesh axes of the profile's ``embed``
         rule (FSDP's: "data" under the train profile) gathered, its
@@ -254,9 +259,13 @@ class ShardingCtx:
         dtype its every use reads it in: half float32's bytes move), but
         for the names in ``keep``.  Off a mesh, with no FSDP axis, and for
         a plain tensor, the weights as they are; the values never
-        change."""
+        change.  With ``tp_only`` (a decode step's) only the weights that
+        also have tensor-parallel shards, whose gathered blocks are small
+        beside the token's rows; the others stay whole over "model" and
+        sharded, for DTensor to bring the few rows to them."""
         if isinstance(params, dict):
-            return {k: self.gather_fsdp(w, None if k in keep else dtype)
+            return {k: self.gather_fsdp(w, None if k in keep else dtype,
+                                        tp_only=tp_only)
                     for k, w in params.items()}
         if self.mesh is None or self.profile is None or \
                 not isinstance(params, DTensor):
@@ -266,7 +275,10 @@ class ShardingCtx:
             else tuple(rule)
         dims = [i for i, n in enumerate(self.mesh.mesh_dim_names)
                 if n in axes]
-        if not any(params.placements[i].is_shard() for i in dims):
+        if not any(params.placements[i].is_shard() for i in dims) or (
+                tp_only and not any(p.is_shard() for i, p in
+                                    enumerate(params.placements)
+                                    if i not in dims)):
             return params
         if dtype is not None:
             params = params.to(dtype)

@@ -138,6 +138,11 @@ FREE_OPS = frozenset((
     "wait_tensor", "detach", "lift_fresh", "alias", "_unsafe_view",
     "lift_fresh_copy", "_wrap_tensor_autograd",
 ))
+# the free ops that make a new buffer: they move no bytes, but the buffer
+# is live until it is freed (a stack filled a layer at a time, a gradient
+# written a chunk at a time)
+EMPTY_OPS = frozenset(("empty", "empty_strided", "empty_like", "new_empty",
+                       "new_empty_strided"))
 
 
 def _spec(x):
@@ -213,8 +218,9 @@ class OpTrace(TorchDispatchMode):
         the op and output shapes that made them: ``[bytes, count, op,
         shapes]``, largest first: what the peak is made of."""
         groups = defaultdict(lambda: [0, 0])
+        # a buffer freed before the op after the peak's was live at it
         for at, nbytes, freed in self.allocs:
-            if at <= self.peak_at and (freed is None or freed > self.peak_at):
+            if at <= self.peak_at and (freed is None or freed >= self.peak_at):
                 rec = self.records[at - 1]
                 g = groups[(rec[0], str(rec[2]))]
                 g[0] += nbytes
@@ -271,7 +277,7 @@ class OpTrace(TorchDispatchMode):
         self.records.append([f"{ns}::{base}", kind,
                              [_spec(t) for t in tensors],
                              [_spec(a) for a in args]])
-        if kind == "op" and _allocates(func):
+        if (kind == "op" or base in EMPTY_OPS) and _allocates(func):
             seen = set()
             for t in tensors:
                 # a buffer lives as long as its storage: a detached alias

@@ -29,7 +29,12 @@ from torch.distributed.tensor._utils import (
 )
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
+from repro_torch.distributed.sharding import (
+    NULL_CTX,
+    ROW_RULE,
+    ShardingCtx,
+    resolve_axes,
+)
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -161,10 +166,60 @@ class FlatParamsLM(nn.Module):
 def remat(cfg, fn, *args):
     """``fn(*args)``; with ``cfg.remat`` set and autograd recording, its
     activations are recomputed in the backward pass instead of kept
-    (``repro`` wraps the same layer bodies in ``jax.checkpoint``)."""
+    (``repro`` wraps the same layer bodies in ``jax.checkpoint``).  An
+    input whose rows fell back to replicated over the mesh axes that shard
+    rows is held as this rank's sequence shard over them
+    (``_held_as_shards``)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(*_held_as_shards(fn, args), use_reentrant=False)
     return fn(*args)
+
+
+def _row_fallback_dims(x) -> Tuple[int, ...]:
+    """The mesh dimensions of ``ROW_RULE`` over which the (B, S, …) DTensor
+    ``x`` is replicated (its rows did not divide them), where its sequence
+    divides them; none for anything else."""
+    if not isinstance(x, DTensor) or x.ndim < 3:
+        return ()
+    mesh = x.device_mesh
+    dims = tuple(i for i, n in enumerate(mesh.mesh_dim_names or ())
+                 if n in ROW_RULE and x.placements[i].is_replicate())
+    n = int(np.prod([mesh.size(i) for i in dims]))
+    return dims if dims and x.shape[1] % n == 0 else ()
+
+
+def _held_as_shards(fn, args):
+    """``(fn', *args')`` for ``checkpoint``: each argument with row
+    fallback dimensions (``_row_fallback_dims``) passed as its sequence
+    shard over them (a local slice), which is all the checkpoint holds
+    until the backward.  The first call of ``fn'`` (the forward) reads the
+    whole input it was given; the recomputation all-gathers it from the
+    shard.  Either way ``fn`` sees the same values, and the gradient flows
+    to the whole input along the forward's graph."""
+    held = {i: _row_fallback_dims(a) for i, a in enumerate(args)}
+    held = {i: d for i, d in held.items() if d}
+    if not held:
+        return (fn, *args)
+    whole = {i: args[i] for i in held}
+    layout = {i: (args[i].placements, args[i].requires_grad) for i in held}
+    shards = list(args)
+    for i, dims in held.items():
+        x = args[i]
+        shards[i] = x.detach().redistribute(x.device_mesh, [
+            Shard(1) if j in dims else p for j, p in enumerate(x.placements)])
+
+    def run(*a):
+        a = list(a)
+        for i in held:
+            if i in whole:  # the forward: the input itself
+                a[i] = whole.pop(i)
+            else:  # the recomputation: gathered from its shard
+                pl, grad = layout[i]
+                a[i] = a[i].redistribute(a[i].device_mesh, pl) \
+                    .requires_grad_(grad)
+        return fn(*a)
+
+    return (run, *shards)
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +297,41 @@ def batch_local(like, ref: torch.Tensor, *args, **kw) -> torch.Tensor:
     to the global batch.  On a plain tensor, ``torch.zeros`` /
     ``torch.full`` at ``ref``'s shape, bit for bit."""
     return like(ref, *args, memory_format=torch.contiguous_format, **kw)
+
+
+class DecodeRows:
+    """A decode step's token rows (B, 1, d) held on their batch shards and
+    whole on "model" after every residual add (``hold``), with the
+    tensor-parallel weights' FSDP shards gathered (``weights``): each
+    product then moves nothing, where left to DTensor a product with a
+    weight sharded on its rows gathers the token's rows and all-reduces
+    its partial sums at the whole batch.  Where the profile leaves the
+    rows whole (a long cell's batch of one) both do nothing: DTensor's own
+    products move less there."""
+
+    AXES = ("act_batch", None, "act_embed")
+
+    def __init__(self, ctx: ShardingCtx, x):
+        self.ctx = ctx
+        self.on = (ctx.mesh is not None and ctx.profile is not None
+                   and isinstance(x, DTensor) and resolve_axes(
+                       ctx.mesh, self.AXES, x.shape, ctx.profile)[0]
+                   is not None)
+
+    def hold(self, x):
+        return self.ctx.constrain(x, self.AXES) if self.on else x
+
+    def weights(self, params, dtype, keep):
+        return self.ctx.gather_fsdp(params, dtype, keep, tp_only=True) \
+            if self.on else params
+
+
+def new_layers_like(cache: torch.Tensor) -> torch.Tensor:
+    """An empty buffer for a decode step's new (L, …) cache entry, laid
+    out as the old one (``batch_local``): each layer writes its own entry
+    into it as it makes it, so the layers' entries are never all alive
+    beside their stack (``torch.stack`` of a list holds both)."""
+    return batch_local(torch.empty_like, cache)
 
 
 def positions_like(x: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
@@ -445,8 +535,14 @@ def decode_attention(
     float32 (``repro``'s ``preferred_element_type=float32``): the operands
     are cast to float32, which is exact for bf16, so the scores stay fp32.
     The softmax weights are rounded to the cache's dtype before the value
-    product, as in ``repro``.
+    product, as in ``repro``.  A cache that is a DTensor sharded over its
+    rows, sequence and heads attends on each rank's shards
+    (``_decode_attention_shards``).
     """
+    if isinstance(k, DTensor):
+        out = _decode_attention_shards(q, k, v, pos_q, pos_k, window)
+        if out is not None:
+            return out
     B, _, Hq, D = q.shape
     _, S, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -459,6 +555,73 @@ def decode_attention(
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).to(at), v.to(at))
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _decode_attention_shards(q, k, v, pos_q, pos_k, window):
+    """``decode_attention`` on this rank's pieces when the cache ``k`` is a
+    DTensor sharded only over its rows (dim 0), sequence (dim 1) and KV
+    heads (dim 2): the queries cut to the same rows and to the heads that
+    read this rank's KV heads, the output laid out as those cuts and
+    replicated over the sequence's mesh dimensions.  Where the sequence is
+    whole on every rank it is the plain call on the pieces, bit for bit;
+    where it is split, the softmax over it is ``repro``'s: the scores'
+    max all-reduced with MAX, the sum of their exponentials and the
+    weighted values with SUM over the sequence's mesh dimensions (each
+    rank's scores stay its own).  None for any other layout."""
+    roles = []
+    for p in k.placements:
+        if p.is_replicate():
+            roles.append(None)
+        elif type(p) is Shard and p.dim in (0, 1, 2):
+            roles.append(("batch", "seq", "heads")[p.dim])
+        else:
+            return None
+    mesh = k.device_mesh
+    Hq, Hkv = q.shape[2], k.shape[2]
+    G = Hq // Hkv
+    kv = {"batch": 0, "seq": 1, "heads": 2}
+    ql = to_shard(q, mesh, roles, {"batch": 0, "heads": 2})
+    kl, vl = (to_shard(t, mesh, roles, kv) for t in (k, v))
+    pql = to_shard(pos_q, mesh, roles, {"batch": 0})
+    pkl = to_shard(pos_k, mesh, roles, {"batch": 0, "seq": 1})
+    if ql.shape[2] != kl.shape[2] * G:
+        return None
+    seq = [i for i, r in enumerate(roles) if r == "seq"]
+    if not seq:
+        out = decode_attention(ql, kl, vl, pql, pkl, window=window)
+    else:
+        out = _decode_attention_split(ql, kl, vl, pql, pkl, window, mesh,
+                                      seq)
+    return from_shard(out, mesh, roles, {"batch": 0, "heads": 2},
+                      tuple(q.shape))
+
+
+def _decode_attention_split(q, k, v, pos_q, pos_k, window, mesh, seq):
+    """``decode_attention`` over a cache whose sequence is split over the
+    mesh dimensions ``seq``, on this rank's slice of it: the softmax's max
+    and sum and the value product's sum all-reduced over them."""
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    at = acc_dtype(k.dtype)
+    qh = (q * scalar_in(1.0 / np.sqrt(D), q.dtype)).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qh.to(k.dtype).to(at), k.to(at))
+    mask = (pos_k >= 0) & (pos_k <= pos_q)
+    if window is not None:
+        mask = mask & ((pos_q - pos_k) < window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    for d in seq:
+        m = _all_reduce(m, "max", mesh, d)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    for d in seq:
+        l = _all_reduce(l, "sum", mesh, d)
+    p = e / l
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).to(at), v.to(at))
+    for d in seq:
+        out = _all_reduce(out, "sum", mesh, d)
     return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
@@ -735,6 +898,73 @@ def _vocab_parallel_nll(lf: DTensor, labels, dims) -> DTensor:
     return _from_rows(nll, mesh, rows, lf.shape[:-1])
 
 
+# the most bytes of the accumulation dtype that one row chunk of the
+# whole-vocabulary cross entropy works on at a time
+CE_CHUNK_BYTES = 1 << 28
+
+
+def _row_chunks(shape, at: torch.dtype):
+    """(batch row, row slice) pairs covering the rows of (B, S, V) logits
+    of ``shape`` in chunks of at most ``CE_CHUNK_BYTES`` of ``at`` each:
+    each chunk is a contiguous run of a batch row's rows, never a copy of
+    the logits."""
+    B, S, V = shape
+    n = max(1, CE_CHUNK_BYTES // (V * torch.finfo(at).bits // 8))
+    for b in range(B):
+        for r in range(0, S, n):
+            yield b, slice(r, r + n)
+
+
+class _WholeVocabNLL(torch.autograd.Function):
+    """-log softmax at the gold label of (B, S, V) logits over the whole
+    vocabulary, each row's reduction as ``torch.logsumexp`` and
+    ``torch.gather`` make it on the logits cast to ``at``, without the
+    copies autograd keeps of that: the logits are saved in their own dtype
+    beside each row's log-sum-exp, the cast and the products run a row
+    chunk at a time (``_row_chunks``), and the backward writes ``(softmax -
+    onehot) · g`` into one buffer of the logits' dtype, each chunk computed
+    in ``at`` and then cast (the rounding of ``at``'s autodiff followed by
+    the cast's)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, at):
+        idx = labels[..., None].long()
+        lse = torch.empty(logits.shape[:-1], dtype=at, device=logits.device)
+        gold = torch.empty_like(lse)
+        for b, r in _row_chunks(logits.shape, at):
+            lc = logits[b, r].to(at)
+            lse[b, r] = torch.logsumexp(lc, dim=-1)
+            gold[b, r] = torch.gather(lc, -1, idx[b, r])[..., 0]
+        ctx.save_for_backward(logits, lse, idx)
+        ctx.at = at
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx = ctx.saved_tensors
+        grad = torch.empty_like(logits,
+                                memory_format=torch.contiguous_format)
+        for b, r in _row_chunks(logits.shape, ctx.at):
+            gc = g[b, r][..., None]
+            pc = gc * (logits[b, r].to(ctx.at) - lse[b, r][..., None]).exp()
+            grad[b, r] = pc.scatter_add_(-1, idx[b, r], -gc).to(grad.dtype)
+        return grad, None, None
+
+
+def _whole_vocab_nll(logits, labels, at):
+    """Per-position NLL over a vocabulary no mesh dimension shards
+    (``_WholeVocabNLL``); on a DTensor, each rank's own rows (its local
+    logits and labels), as a DTensor laid out as the logits' rows."""
+    if not isinstance(logits, DTensor):
+        return _WholeVocabNLL.apply(logits, labels, at)
+    mesh = logits.device_mesh
+    rows = [Replicate() if p.is_partial() else p for p in logits.placements]
+    logits = logits.redistribute(mesh, rows)
+    labels = labels.redistribute(mesh, rows)
+    nll = _WholeVocabNLL.apply(logits.to_local(), labels.to_local(), at)
+    return _from_rows(nll, mesh, rows, logits.shape[:-1])
+
+
 def cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
@@ -743,23 +973,21 @@ def cross_entropy(
     (B,S,V), labels (B,S).  Logits that are a DTensor sharded on the
     vocabulary (the labels and mask DTensors on its mesh) take the
     vocab-parallel path (``_VocabParallelNLL``), which never gathers the
-    vocabulary."""
+    vocabulary; others, the whole-vocabulary one (``_WholeVocabNLL``),
+    which keeps no float32 copy of them."""
     at = acc_dtype(logits.dtype)
-    lf = logits.to(at)
-    dims = _vocab_dims(lf, -1)
+    dims = _vocab_dims(logits, -1)
     if dims:
-        nll = _vocab_parallel_nll(lf, labels, dims)
-        if mask is not None:
-            mask = mask.redistribute(nll.device_mesh, nll.placements)
+        nll = _vocab_parallel_nll(logits.to(at), labels, dims)
     else:
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-        nll = lse - gold
+        nll = _whole_vocab_nll(logits, labels, at)
+    if mask is not None and isinstance(nll, DTensor):
+        mask = mask.redistribute(nll.device_mesh, nll.placements)
     if mask is not None:
         mask = mask.to(at)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
-    if dims:  # DTensor's mean backward would make every rank's a global one
-        return torch.sum(nll) / nll.numel()
+    if isinstance(nll, DTensor):  # DTensor's mean backward would make
+        return torch.sum(nll) / nll.numel()  # every rank's a global one
     return torch.mean(nll)
 
 

@@ -36,6 +36,8 @@ from repro_torch.models.common import (
     positions_like,
     glu_mlp,
     head_logits,
+    DecodeRows,
+    new_layers_like,
     next_token_ce,
     remat,
     rms_norm,
@@ -275,24 +277,24 @@ class EncDecLM(FlatParamsLM):
         # cross-attention is not causal: a query position past every
         # encoder slot (int32 max) leaves all of them unmasked
         big = torch.full_like(pos_q, INT32_MAX)
-        ks, vs = [], []
+        ks, vs = new_layers_like(cache["k"]), new_layers_like(cache["v"])
+        rows = DecodeRows(ctx, x)
+        x = rows.hold(x)
         for i in range(cfg.num_layers):
-            p_l = self._stack(params, "dec", i)
+            p_l = rows.weights(self._stack(params, "dec", i), dt,
+                               self._layer_keep())
             h = rms_norm(x, p_l["attn_norm"], cfg.norm_eps)
             q = apply_rope(self._proj(h, p_l["wq"]), pos_q, cfg.rope_theta)
             k = apply_rope(self._proj(h, p_l["wk"]), pos_q, cfg.rope_theta)
-            ck, cv, cp = cache_update(cache["k"][i], cache["v"][i], cp, k,
-                                      self._proj(h, p_l["wv"]), t)
-            x = x + self._out(p_l, "", decode_attention(q, ck, cv, pos_q, cp),
-                              dt)
+            ks[i], vs[i], cp = cache_update(cache["k"][i], cache["v"][i], cp,
+                                            k, self._proj(h, p_l["wv"]), t)
+            x = rows.hold(x + self._out(
+                p_l, "", decode_attention(q, ks[i], vs[i], pos_q, cp), dt))
             h = rms_norm(x, p_l["xattn_norm"], cfg.norm_eps)
             a = decode_attention(self._proj(h, p_l["xwq"]), cache["xk"][i],
                                  cache["xv"][i], big, cache["enc_pos"])
-            x = x + self._out(p_l, "x", a, dt)
-            x = x + self._mlp(p_l, x, ctx)
-            ks.append(ck)
-            vs.append(cv)
+            x = rows.hold(x + self._out(p_l, "x", a, dt))
+            x = rows.hold(x + self._mlp(p_l, x, ctx))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x, ctx)[:, 0]
-        return logits, dict(cache, k=torch.stack(ks), v=torch.stack(vs),
-                            pos=cp)
+        return logits, dict(cache, k=ks, v=vs, pos=cp)

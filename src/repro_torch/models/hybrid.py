@@ -34,6 +34,8 @@ from repro_torch.models.common import (
     positions_like,
     glu_mlp,
     head_logits,
+    DecodeRows,
+    new_layers_like,
     next_token_ce,
     remat,
     rms_norm,
@@ -270,24 +272,25 @@ class HybridLM(FlatParamsLM):
         cfg = self.cfg
         x = self._embed(params, tokens)
         cp = cache["pos"]
-        new_ssm, new_conv, new_k, new_v = [], [], [], []
+        new_ssm, new_conv, new_k, new_v = (
+            new_layers_like(cache[n]) for n in ("ssm", "conv", "k", "v"))
         app = 0
+        rows = DecodeRows(ctx, x)
+        shared = {**params, **rows.weights(
+            {k: v for k, v in params.items() if k.startswith("s_")},
+            x.dtype, self.KEEP)}
+        x = rows.hold(x)
         for i in range(cfg.num_layers):
-            out, cs, hs = mamba_block_decode(self._layer(params, i), x, cfg,
-                                             cache["conv"][i], cache["ssm"][i],
-                                             ctx)
-            x = x + out
-            new_conv.append(cs)
-            new_ssm.append(hs)
+            p_l = rows.weights(self._layer(params, i), x.dtype, MAMBA_KEEP)
+            out, new_conv[i], new_ssm[i] = mamba_block_decode(
+                p_l, x, cfg, cache["conv"][i], cache["ssm"][i], ctx)
+            x = rows.hold(x + out)
             if (i + 1) % cfg.attn_every == 0:
-                x, ck, cv, cp = self._shared_decode(
-                    params, x, cache["k"][app], cache["v"][app], cp, t, ctx)
-                new_k.append(ck)
-                new_v.append(cv)
+                x, new_k[app], new_v[app], cp = self._shared_decode(
+                    shared, x, cache["k"][app], cache["v"][app], cp, t, ctx)
+                x = rows.hold(x)
                 app += 1
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = head_logits(x, params["lm_head"].to(x.dtype), ctx)[:, 0]
-        return logits, {
-            "k": torch.stack(new_k), "v": torch.stack(new_v), "pos": cp,
-            "ssm": torch.stack(new_ssm), "conv": torch.stack(new_conv),
-        }
+        return logits, {"k": new_k, "v": new_v, "pos": cp, "ssm": new_ssm,
+                        "conv": new_conv}

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models.common import (
@@ -35,6 +35,8 @@ from repro_torch.models.common import (
     embed_rows,
     from_shard,
     head_logits,
+    DecodeRows,
+    new_layers_like,
     next_token_ce,
     remat,
     rms_norm,
@@ -132,7 +134,18 @@ def wkv6_chunked(
 
 def wkv6_step(r, k, v, logw, u, Sst):
     """Single token.  r / k / v / logw: (B, H, hd); Sst: (B, H, hd, hd)
-    float32."""
+    float32.  A state that is a DTensor sharded over its rows (and heads)
+    steps on each rank's own, the inputs cut to them (``shard_roles``):
+    the state never moves, only the token's inputs."""
+    roles = shard_roles(Sst, 1) if isinstance(Sst, DTensor) else None
+    if roles is not None and "batch" in roles:
+        mesh, bh = Sst.device_mesh, {"batch": 0, "heads": 1}
+        y, S_new = wkv6_step(
+            *(to_shard(t, mesh, roles, bh) for t in (r, k, v, logw)),
+            to_shard(u, mesh, roles, {"heads": 0}),
+            to_shard(Sst, mesh, roles, bh))
+        return (from_shard(y, mesh, roles, bh, tuple(r.shape)),
+                from_shard(S_new, mesh, roles, bh, tuple(Sst.shape)))
     at = acc_dtype(r.dtype)
     rf, kf, vf = r.to(at), k.to(at), v.to(at)
     bonus = Sst + (kf * u.to(at))[..., None] * vf[..., None, :]
@@ -140,6 +153,20 @@ def wkv6_step(r, k, v, logw, u, Sst):
     S_new = (torch.exp(logw.to(at))[..., None] * Sst
              + kf[..., None] * vf[..., None, :])
     return y.to(r.dtype), S_new
+
+
+def _columns_as(w: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``w`` (n, H·hd) with its columns cut as the DTensor ``ref`` (B, S, H,
+    hd) cuts its heads over the mesh dimensions where ``w`` is replicated:
+    a product with it makes only this rank's heads' channels (a local
+    slice, no collective).  ``w`` itself otherwise."""
+    if not (isinstance(w, DTensor) and isinstance(ref, DTensor)) or \
+            Shard(1) in w.placements:  # its columns already cut (FSDP)
+        return w
+    pl = [Shard(1) if q.is_replicate() and type(p) is Shard and p.dim == 2
+          else q for p, q in zip(ref.placements, w.placements)]
+    return w.redistribute(w.device_mesh, pl) if pl != list(w.placements) \
+        else w
 
 
 def _shift(h: torch.Tensor) -> torch.Tensor:
@@ -246,9 +273,11 @@ class RWKVLM(FlatParamsLM):
         k = (xk @ p["wk"].to(dt)).reshape(B, S, H, hd)
         v = (xv @ p["wv"].to(dt)).reshape(B, S, H, hd)
         g = xg @ p["wg"].to(dt)
-        # the decay LoRA in float32: (xw @ w1) @ w2, the cheap order
+        # the decay LoRA in float32: (xw @ w1) @ w2, the cheap order, its
+        # second product on the channels of the heads each rank's r holds
+        # (the heads the scan reads there)
         ww = p["decay_base"].to(at) + (xw.to(at) @ p["dec_w1"].to(at)) \
-            @ p["dec_w2"].to(at)
+            @ _columns_as(p["dec_w2"].to(at), r)
         logw = -torch.exp(ww).reshape(B, S, H, hd)  # log w_t <= 0
         return r, k, v, logw, g
 
@@ -358,21 +387,22 @@ class RWKVLM(FlatParamsLM):
         Returns (logits, state)."""
         cfg = self.cfg
         x = self._embed(params, tokens)  # (B, 1, d)
-        wkv, sh_t, sh_c = [], [], []
+        wkv, sh_t, sh_c = (new_layers_like(cache[n])
+                           for n in ("wkv", "shift_t", "shift_c"))
+        rows = DecodeRows(ctx, x)
+        x = rows.hold(x)
         for i in range(cfg.num_layers):
-            p_l = self._layer(params, i)
+            p_l = rows.weights(self._layer(params, i), x.dtype, self.KEEP)
             h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
             r, k, v, logw, g = self.wkv_inputs(p_l, h,
                                                cache["shift_t"][i][:, None])
             y, S_new = wkv6_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0],
                                  p_l["u"], cache["wkv"][i])
-            x = self._tmix_out(p_l, x, y[:, None], g)
+            x = rows.hold(self._tmix_out(p_l, x, y[:, None], g))
             h2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
-            x = x + self._channel_mix(p_l, h2, cache["shift_c"][i][:, None])
-            wkv.append(S_new)
-            sh_t.append(h[:, 0])
-            sh_c.append(h2[:, 0])
+            x = rows.hold(x + self._channel_mix(p_l, h2,
+                                                cache["shift_c"][i][:, None]))
+            wkv[i], sh_t[i], sh_c[i] = S_new, h[:, 0], h2[:, 0]
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = head_logits(x, params["lm_head"].to(x.dtype), ctx)[:, 0]
-        return logits, {"wkv": torch.stack(wkv), "shift_t": torch.stack(sh_t),
-                        "shift_c": torch.stack(sh_c)}
+        return logits, {"wkv": wkv, "shift_t": sh_t, "shift_c": sh_c}

@@ -164,6 +164,19 @@ def ssd_decode_step(
     Cm: torch.Tensor,  # (B, N)
     h: torch.Tensor,   # (B, nh, hp, N) float32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single token.  A state ``h`` that is a DTensor sharded over its
+    rows (and heads) steps on each rank's own, the inputs cut to them
+    (``shard_roles``): the state never moves, only the token's inputs."""
+    roles = shard_roles(h, 1) if isinstance(h, DTensor) else None
+    if roles is not None and "batch" in roles:
+        mesh, bh = h.device_mesh, {"batch": 0, "heads": 1}
+        y, h_new = ssd_decode_step(
+            to_shard(x, mesh, roles, bh), to_shard(dt, mesh, roles, bh),
+            to_shard(A, mesh, roles, {"heads": 0}),
+            *(to_shard(t, mesh, roles, {"batch": 0}) for t in (Bm, Cm)),
+            to_shard(h, mesh, roles, bh))
+        return (from_shard(y, mesh, roles, bh, tuple(x.shape)),
+                from_shard(h_new, mesh, roles, bh, tuple(h.shape)))
     at = acc_dtype(x.dtype)
     dtf = dt.to(at)
     da = torch.exp(dtf * A.to(at))  # (B, nh)

@@ -42,6 +42,7 @@ from repro_torch.models.common import (
     cache_update,
     decode_attention,
     embed_rows,
+    new_layers_like,
     positions_like,
     glu_mlp,
     head_logits,
@@ -347,14 +348,11 @@ class DecoderLM(FlatParamsLM):
         cfg = self.cfg
         x = self._embed_tokens(params, tokens, ctx)
         cache_pos = cache["pos"]
-        ks, vs = [], []
+        ks, vs = new_layers_like(cache["k"]), new_layers_like(cache["v"])
         for i in range(cfg.num_layers):
-            x, ck, cv, cache_pos = self._layer_decode(
+            x, ks[i], vs[i], cache_pos = self._layer_decode(
                 self._layer(params, i), x, cache["k"][i], cache["v"][i],
                 cache_pos, t, ctx)
-            ks.append(ck)
-            vs.append(cv)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x, ctx)[:, 0]
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
-                        "pos": cache_pos}
+        return logits, {"k": ks, "v": vs, "pos": cache_pos}

@@ -436,3 +436,151 @@ def decode_lookup_head_rank(rank, world, cases):
         out[name] = (rows.full_tensor().numpy(), logits.full_tensor().numpy(),
                      rec.numel)
     return out
+
+
+class _Ops:
+    """A dispatch mode below DTensor that records each local op's name,
+    output shapes and dtypes and input shapes on this rank (DTensor's ops
+    pass on to DTensor, whose local ops come back here)."""
+
+    @staticmethod
+    def mode():
+        import torch
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Ops(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.seen = []
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                self.seen.append((
+                    func.name(),
+                    [(tuple(t.shape), str(t.dtype)) for t in outs
+                     if isinstance(t, torch.Tensor)],
+                    [tuple(a.shape) for a in args
+                     if isinstance(a, torch.Tensor)]))
+                return out
+
+        return Ops()
+
+
+def whole_vocab_ce_rank(rank, world, cases, chunk_bytes):
+    """``next_token_ce`` on bf16 logits that are a DTensor sharded over
+    the rows on "data" of a ("data", "model") mesh of ``(world // 2, 2)``
+    and whole on the vocabulary (replicated over "model": a vocabulary the
+    mesh does not divide), with ``CE_CHUNK_BYTES`` at ``chunk_bytes``.
+    ``cases`` maps a name to (logits float32, labels); returns per case the
+    loss, the logits' whole gradient (float32) and every op's output
+    shapes and dtypes on this rank, forward and backward."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common
+
+    common.CE_CHUNK_BYTES = chunk_bytes
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for name, (logits, labels) in cases.items():
+        lg = distribute_tensor(
+            torch.from_numpy(logits).to(torch.bfloat16), mesh,
+            [Shard(0), Replicate()]).requires_grad_(True)
+        lb = distribute_tensor(torch.from_numpy(labels), mesh,
+                               [Shard(0), Replicate()])
+        with _Ops.mode() as rec:
+            loss = common.next_token_ce(lg, lb)
+            loss.backward()
+        out[name] = (float(loss.detach().full_tensor()),
+                     lg.grad.full_tensor().float().numpy(),
+                     [o for _, outs, _ in rec.seen for o in outs])
+    return out
+
+
+def decode_step_rank(rank, world, cases):
+    """``wkv6_step``, ``ssd_decode_step`` and ``decode_attention`` without
+    a gradient on DTensors over a ("data", "model") mesh of ``(world // 2,
+    2)``, laid out as the decode cells lay them out (``cases`` maps a name
+    to the function's name, its numpy arguments, each argument's
+    placements as (mesh dim, tensor dim) pairs and keyword arguments; a
+    plain tensor is taken as replicated); returns per case the outputs
+    gathered whole, the all-gathers the call made, as (input shape, output
+    shape), and the placements of the last output and of the last
+    argument (a step's new and old state)."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common, rwkv, ssm
+
+    fns = {"wkv6_step": rwkv.wkv6_step, "ssd_decode_step": ssm.ssd_decode_step,
+           "decode_attention": common.decode_attention}
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for name, (fn, arrays, layouts, kw) in cases.items():
+        args = []
+        for a, lay in zip(arrays, layouts):
+            pl = [Replicate(), Replicate()]
+            for mesh_dim, dim in lay:
+                pl[mesh_dim] = Shard(dim)
+            args.append(distribute_tensor(torch.from_numpy(a), mesh, pl))
+        with torch.no_grad(), _Ops.mode() as rec:
+            res = fns[fn](*args, **kw)
+        res = res if isinstance(res, tuple) else (res,)
+        out[name] = ([r.full_tensor().numpy() for r in res],
+                     [(ins[0], outs[0][0]) for op, outs, ins in rec.seen
+                      if "all_gather" in op],
+                     (str(res[-1].placements), str(args[-1].placements)))
+    return out
+
+
+def held_remat_rank(rank, world, arch, rows, seq):
+    """The loss and its gradients of ``arch``'s reduced config in float32
+    with ``remat`` on and off, its parameters sharded as the train profile
+    shards them over a ("data", "model") mesh of ``(world // 2, 2)`` and a
+    batch of ``rows`` that the "data" axis does not divide (replicated
+    over it, as the cells' fallback leaves it).  Returns per setting the
+    loss, every parameter's whole gradient and the all-gathers of the
+    forward and of the backward, as (input shape, output shape)."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import ShardingCtx, make_profile
+    from repro_torch.launch.cells import param_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model, make_inputs
+
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    profile = make_profile("train")
+    batch = make_inputs(get_reduced(arch), ShapeSpec("t", "train", seq, rows),
+                        seed=0, device="cpu")
+    out = {}
+    for remat in (True, False):
+        cfg = get_reduced(arch).with_(remat=remat)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        shard = param_shardings(model, mesh, profile, [])
+        dparams = {n: distribute_tensor(p, *shard[n]).requires_grad_(True)
+                   for n, p in params.items()}
+        dbatch = {k: distribute_tensor(v, mesh, [Replicate(), Replicate()])
+                  for k, v in batch.items()}
+        ctx = ShardingCtx(mesh, profile)
+        with implicit_replication(), _Ops.mode() as fwd:
+            loss, _ = model.loss(dparams, dbatch, ctx)
+        names = sorted(dparams)
+        with implicit_replication(), _Ops.mode() as bwd:
+            grads = torch.autograd.grad(loss, [dparams[n] for n in names])
+        out[remat] = (float(loss.detach().full_tensor()),
+                      {n: g.full_tensor().numpy() for n, g in
+                       zip(names, grads)},
+                      [[(ins[0], outs[0][0]) for op, outs, ins in rec.seen
+                        if "all_gather" in op] for rec in (fwd, bwd)])
+    return out

@@ -387,9 +387,10 @@ def test_train_cell_4x4_holds_no_whole_vocabulary(train44):
 def test_train_cell_4x4_collectives_and_dots_near_repros(train44):
     """The cell's collective bytes a device at most 1.5x ``repro``'s
     compiled ones and its dot FLOPs at most the cell's ``dot_ratio`` times
-    (1.1x; zamba2-1.2b 1.5x and rwkv6-1.6b 1.2x, whose reduced widths make
-    the products the port runs whole on every "model" rank a large share:
-    ROADMAP C15).  At the parent the attention's
+    (1.1x; zamba2-1.2b 1.5x, whose reduced widths make the Mamba backward
+    the CPU's torch runs whole on every "model" rank a large share; rwkv6's
+    decay LoRA runs on the heads the scan reads, where its 1.124x on this
+    CPU ran it whole: ROADMAP C15).  At the parent the attention's
     K / V and the scans' inputs were gathered to the global batch and the
     time and Mamba mixes' pending sums settled as sequence shards: llama3
     41.5 MB against 33.7 (dots 1.18x), rwkv6 40.1 MB against 20.4 (dots
@@ -403,8 +404,7 @@ def test_train_cell_4x4_collectives_and_dots_near_repros(train44):
         smoke.TRAIN44_COLL_RATIO * ref["collective_bytes"]
     assert got["dot_flops"] <= c["dot_ratio"] * ref["dot_flops"]
     assert smoke.TRAIN44_COLL_RATIO == 1.5
-    assert c["dot_ratio"] == {"zamba2-1.2b": 1.5,
-                              "rwkv6-1.6b": 1.2}.get(arch, 1.1)
+    assert c["dot_ratio"] == {"zamba2-1.2b": 1.5}.get(arch, 1.1)
 
 
 def test_train_cell_4x4_repro_temp_is_the_smokes_constant(train44):
@@ -427,7 +427,9 @@ def decode44():
     sys.path.insert(0, os.path.dirname(SRC))
     import chip_smoke
 
-    c = json.dumps(chip_smoke.DECODE44_CELL)
+    c = json.dumps({"arch": "llama3-8b",
+                    **chip_smoke.DECODE44_CELLS["llama3-8b"],
+                    **chip_smoke.DECODE44_SHAPE})
     ref = last_json(run_with_devices(
         f"import sys; sys.argv[1:] = [{c!r}]\n" + REPRO_TRAIN44,
         n_devices=16))
@@ -449,4 +451,5 @@ def test_decode_cell_4x4_gathers_no_whole_table(decode44):
     assert got["whole_vocab_ops"] == []
     assert got["collective_bytes"] <= \
         smoke.TRAIN44_COLL_RATIO * ref["collective_bytes"]
-    assert ref["collective_bytes"] == smoke.DECODE44_CELL["repro_coll"]
+    assert ref["collective_bytes"] == \
+        smoke.DECODE44_CELLS["llama3-8b"]["repro_coll"]
