@@ -82,7 +82,7 @@ Run from the root of a checkout:
    prefill on the same layer inputs, 1e-3 relative; the logits' difference
    reported), blockwise attention against a naive softmax at one
    request's first-layer shapes (1e-4); then a ServeDaemon(pipeline=) on
-   DEFAULT_LADDER serves 16 requests of 32 queries with 64-token prompts
+   DEFAULT_LADDER serves 8 requests of 32 queries with 64-token prompts
    (576-token contexts, 32 new tokens), each request's retrieved ids held
    against a plain search at its rung; p50 / p99, retrieve / prefill /
    decode seconds from the spans, tokens/s, resident weight bytes; one
@@ -173,17 +173,19 @@ Run from the root of a checkout:
    must not beat 4x the per-rank roofline bound (four ranks share the
    card).  (c) The card's bf16 torch.matmul rate at 8192^3 and a 4 GiB
    device copy's bytes a second, beside the roofline's constants; a
-   reading over 105% of a constant fails.  (d) In parallel with (a), three
-   sharded train steps on a (4, 4) fake mesh, 16 x 128 tokens in 2
-   microbatches (reduced llama3-8b at vocab 16,384; reduced zamba2-1.2b;
-   reduced rwkv6-1.6b): each dry-runs, takes at most 1.5x repro's compiled
-   temp bytes a device (26,958,600; 11,047,360; 6,790,144) and 1.5x its
-   collective bytes, at most 1.1x its dot FLOPs (zamba2 1.5x, rwkv6 1.2x:
-   ROADMAP C15), and has no op holding the whole vocabulary as a
-   dimension; and
-   a decode step of the reduced llama3-8b (vocab 16,384, 16 rows of a
-   128-slot cache) makes no op of the whole vocabulary and at most 1.5x
-   repro's 2,509,840 collective bytes.
+   reading over 105% of a constant fails.  (d) In parallel with (a), the
+   sharded train steps of ``TRAIN44_CELLS`` on a (4, 4) fake mesh, 16 x
+   128 tokens in 2 microbatches (reduced llama3-8b at vocab 16,384,
+   zamba2-1.2b, rwkv6-1.6b; mistral-large-123b at 4 rows, whose rows do
+   not divide "data"; seamless-m4t-medium at vocab 16,386, which "model"
+   does not divide; qwen2.5-32b at 10 heads over 4): each dry-runs, takes
+   at most 1.5x repro's compiled temp and collective bytes a device and
+   its ``dot_ratio`` (1.1x; zamba2 1.5x) times its dot FLOPs, and no op
+   but a weight's shard holds the whole vocabulary; and the decode steps
+   of ``DECODE44_CELLS`` (reduced llama3-8b at vocab 16,384, rwkv6-1.6b,
+   zamba2-1.2b, seamless-m4t-medium; 16 rows of a 128-slot cache) make no
+   op of the whole vocabulary and move at most 1.5x repro's collective
+   bytes (rwkv6 and zamba2 1.1x).
 17. Examples phase: examples/quickstart_torch.py,
    distributed_search_torch.py (8 gloo ranks sharing the card),
    rag_serve_torch.py and train_lm_torch.py at their defaults (the sizes of
@@ -3271,25 +3273,27 @@ DRYRUN_CELLS = (("gate-anns", "search_1b"), ("gate-anns", "search_rag"),
 PHASE15_CELL = dict(rows=250_000, d=128, R=PART_R, hubs=16, batch=10_000,
                     **PART_KNOBS)
 RATE_SHAPES = dict(matmul=8192, copy_bytes=4 << 30)
+# phase 11's requests, as many as keep the whole smoke inside 900 s
+RAG_REQUESTS = 8
 DRYRUN_TIMEOUT_S = 300
 # sharded train steps on a (4, 4) fake mesh, 16 rows of 128 tokens in 2
 # microbatches: the reduced llama3-8b at a vocabulary of 16,384 (logits
 # sharded on the vocabulary), the reduced zamba2-1.2b (its causal conv's
 # backward on a sharded DTensor), the reduced rwkv6-1.6b (the WKV scan and
 # its LoRAs), the reduced mistral-large-123b at 4 rows (microbatches of 2
-# rows, which do not divide the 4-way "data" axis: the layer inputs the
-# remat holds) and the reduced seamless-m4t-medium at a vocabulary of 16,386
-# (which does not divide the 4-way "model" axis: the whole-vocabulary
-# cross entropy, whose logits may hold the whole vocabulary, as
-# ``repro``'s do); each with ``repro``'s compiled temp bytes, collective
-# bytes and dot FLOPs a device (XLA on 16 CPU placeholder devices;
+# rows, which do not divide the 4-way "data" axis: each row's sequence is
+# folded into 4 rows), the reduced seamless-m4t-medium at a vocabulary of
+# 16,386 (which does not divide the 4-way "model" axis: the head and the
+# cross entropy on each rank's own block of it; its weights hold the whole
+# vocabulary, as ``repro``'s rules lay them out, and no activation does)
+# and the reduced qwen2.5-32b at 10 query and 2 KV heads (10 over the
+# 4-way "model" axis is production's 40 over 16: each rank its own block
+# of heads); each with ``repro``'s compiled temp bytes, collective bytes
+# and dot FLOPs a device (XLA on 16 CPU placeholder devices;
 # tests/test_torch_cells.py and tests/test_torch_cells_excess.py compile
 # them and hold them to these numbers) and the most dot FLOPs the port may
-# take beside ``repro``'s (where the reduced widths make work the port runs
-# whole on every rank of an axis a large share: zamba2-1.2b's Mamba
-# backward on the CPU's torch; mistral's replicated rows on every "data"
-# rank and seamless's whole-vocabulary head on every "model" rank, which
-# XLA splits; ROADMAP C21)
+# take beside ``repro``'s (zamba2-1.2b's Mamba backward on the CPU's torch
+# runs more)
 TRAIN44_CELLS = {
     "llama3-8b": dict(vocab_size=16384, repro_temp=26_958_600,
                       repro_coll=33_679_296, repro_dot=2_147_483_648,
@@ -3302,29 +3306,39 @@ TRAIN44_CELLS = {
                        dot_ratio=1.1),
     "mistral-large-123b": dict(vocab_size=None, batch=4,
                                repro_temp=2_072_200, repro_coll=13_886_088,
-                               repro_dot=228_589_568, dot_ratio=3.5),
+                               repro_dot=228_589_568, dot_ratio=1.1),
     "seamless-m4t-medium": dict(vocab_size=16386, whole_vocab=True,
                                 repro_temp=100_232_736,
                                 repro_coll=95_285_168,
-                                repro_dot=5_805_506_560, dot_ratio=1.6),
+                                repro_dot=5_805_506_560, dot_ratio=1.1),
+    "qwen2.5-32b": dict(vocab_size=None,
+                        config=dict(num_heads=10, num_kv_heads=2),
+                        repro_temp=9_435_768, repro_coll=12_228_528,
+                        repro_dot=1_560_281_088, dot_ratio=1.1),
 }
 TRAIN44_SHAPE = dict(seq=128, batch=16, micro=2, mesh=(4, 4))
+# the smallest train cells, priced in one process in turn: one
+# interpreter's start and imports fewer beside the other cells'
+# processes on the machine's cores
+TRAIN44_SHARED = ("mistral-large-123b", "qwen2.5-32b")
 # the most temp and collective bytes the port's steps may take beside
 # ``repro``'s
 TRAIN44_TEMP_RATIO = 1.5
 TRAIN44_COLL_RATIO = 1.5
 # one decode step on the (4, 4) fake mesh, 16 rows of a 128-slot cache,
-# with ``repro``'s compiled collective bytes a device: the reduced
-# llama3-8b at a vocabulary of 16,384 (the lookup and the head keep the
-# vocabulary sharded: no op makes the whole table), and the reduced
-# rwkv6-1.6b, zamba2-1.2b and seamless-m4t-medium (the recurrent states and
-# the self- and cross-attention over a cache split on its sequence, each
-# on its rank's shards)
+# with ``repro``'s compiled collective bytes a device and the most the
+# port may move beside them (``TRAIN44_COLL_RATIO`` unless the cell sets
+# ``coll_ratio``): the reduced llama3-8b at a vocabulary of 16,384 (the
+# lookup and the head keep the vocabulary sharded: no op makes the whole
+# table), and the reduced rwkv6-1.6b, zamba2-1.2b and seamless-m4t-medium
+# (the recurrent states and the self- and cross-attention over a cache
+# split on its sequence, each on its rank's shards)
 DECODE44_SHAPE = dict(seq=128, batch=16, mesh=(4, 4), kind="decode")
 DECODE44_CELLS = {
     "llama3-8b": dict(vocab_size=16384, repro_coll=2_509_840),
-    "rwkv6-1.6b": dict(vocab_size=None, repro_coll=570_128),
-    "zamba2-1.2b": dict(vocab_size=None, repro_coll=529_424),
+    "rwkv6-1.6b": dict(vocab_size=None, repro_coll=570_128, coll_ratio=1.1),
+    "zamba2-1.2b": dict(vocab_size=None, repro_coll=529_424,
+                        coll_ratio=1.1),
     "seamless-m4t-medium": dict(vocab_size=None, repro_coll=462_352),
 }
 
@@ -3380,7 +3394,7 @@ def shapes(spec):
         return [spec[0]]
     return [s for x in spec or [] for s in shapes(x)]
 for c in jobs:
-    cfg = get_reduced(c["arch"])
+    cfg = get_reduced(c["arch"]).with_(**c.get("config", {}))
     if c["vocab_size"]:
         cfg = cfg.with_(vocab_size=c["vocab_size"])
     V = cfg.vocab_size
@@ -3390,17 +3404,28 @@ for c in jobs:
     tr = lower_cell(cell)
     h = tr.cost_analysis()
     # ops whose outputs have the whole vocabulary as a dimension (where
-    # the cell sets a vocabulary no other dimension has; else as the last)
+    # the cell sets a vocabulary no other dimension has; else as the
+    # last), and of those the ones no weight could be: beside the
+    # vocabulary more than a (V, d) weight's shard or gathered whole has
     def whole_vocab(s):
         return V in s if c["vocab_size"] else s[-1] == V
-    whole = sorted({r[0] for run in tr.runs for r in run if r[1] == "op"
-                    and any(s and whole_vocab(s) for o in r[2]
-                            for s in shapes(o))})
+    def weight_like(s):
+        return len(s) == 2 and cfg.d_model % (s[0] * s[1] // V) == 0
+    whole = {}
+    for run in tr.runs:
+        for r in run:
+            if r[1] == "op":
+                whole.setdefault(r[0], []).extend(
+                    s for o in r[2] for s in shapes(o) if s and whole_vocab(s))
     print("JSON", json.dumps({**dataclasses.asdict(tr.memory_analysis()),
                               "collective_bytes": h["collective_bytes"],
                               "collectives": h["collectives"],
                               "dot_flops": h["dot_flops"],
-                              "whole_vocab_ops": whole,
+                              "whole_vocab_ops": sorted(
+                                  k for k, v in whole.items() if v),
+                              "vocab_act_ops": sorted(
+                                  k for k, v in whole.items()
+                                  if any(not weight_like(s) for s in v)),
                               "fallbacks": cell.fallbacks + tr.fallbacks}),
           flush=True)
 """
@@ -3413,8 +3438,8 @@ def cell44_jobs(train44=TRAIN44_CELLS, decode44=DECODE44_CELLS) -> dict:
     them), a decode cell at ``DECODE44_SHAPE``."""
     jobs = {f"train44:{a}": {"arch": a, "vocab_size": c["vocab_size"],
                              **TRAIN44_SHAPE,
-                             **{k: c[k] for k in ("batch", "micro")
-                                if k in c}}
+                             **{k: c[k] for k in ("batch", "micro",
+                                                  "config") if k in c}}
             for a, c in train44.items()}
     jobs.update({f"decode44:{a}": {"arch": a, "vocab_size": c["vocab_size"],
                                    **DECODE44_SHAPE}
@@ -3500,12 +3525,12 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
     device at most ``TRAIN44_TEMP_RATIO`` times ``repro``'s compiled ones,
     its collective bytes at most ``TRAIN44_COLL_RATIO`` times and its dot
     FLOPs at most the cell's ``dot_ratio`` times ``repro``'s, and no op has
-    the whole vocabulary as a dimension (but in a ``whole_vocab`` cell,
-    whose vocabulary the mesh does not divide); and each of ``decode44``'s
-    decode steps (``DECODE44_SHAPE``): it dry-runs, makes no op of the
-    whole vocabulary and moves at most ``TRAIN44_COLL_RATIO`` times
-    ``repro``'s collective bytes; the bytes and collective bytes of each
-    logged."""
+    the whole vocabulary as a dimension (in a ``whole_vocab`` cell, whose
+    vocabulary the mesh does not divide, no op but one shaped as a weight
+    of it); and each of ``decode44``'s decode steps (``DECODE44_SHAPE``):
+    it dry-runs, makes no op of the whole vocabulary and moves at most its
+    ``coll_ratio`` (``TRAIN44_COLL_RATIO``) times ``repro``'s collective
+    bytes; the bytes and collective bytes of each logged."""
     from repro_torch.launch import gate_cell, roofline
     from repro_torch.configs import get_config, SHAPES
 
@@ -3526,9 +3551,12 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
             [sys.executable, "-c", PHASE15_PRICING, json.dumps(p15),
              dev.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True, env=env, cwd=ROOT)
-        # a process for each train cell, one for the decode cells in turn
+        # a process for each train cell but those of ``TRAIN44_SHARED``,
+        # which take one in turn, and one for the decode cells in turn
         jobs = cell44_jobs(train44, decode44)
-        groups = [[k] for k in jobs if k.startswith("train44:")] + [
+        train = [k for k in jobs if k.startswith("train44:")]
+        shared = [k for k in train if k.split(":")[1] in TRAIN44_SHARED]
+        groups = [[k] for k in train if k not in shared] + [shared] + [
             [k for k in jobs if k.startswith("decode44:")]]
         for keys in filter(None, groups):
             procs[tuple(keys)] = subprocess.Popen(
@@ -3637,14 +3665,16 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
         require(dot <= c["dot_ratio"],
                 f"phase 16: the {arch} train cell's dot FLOPs are {dot:.3f}x "
                 f"repro's (limit {c['dot_ratio']})")
-        require(c.get("whole_vocab") or not t44["whole_vocab_ops"],
-                f"phase 16: the {arch} train cell holds the whole "
-                f"vocabulary in {t44['whole_vocab_ops']}")
+        wv = t44["vocab_act_ops" if c.get("whole_vocab")
+                 else "whole_vocab_ops"]
+        require(not wv, f"phase 16: the {arch} train cell holds the whole "
+                f"vocabulary in {wv}")
     d44s = {}
     for arch, c in decode44.items():
         d44s[arch] = d44 = cell44[f"decode44:{arch}"]
         d44["coll_vs_repro"] = coll = \
             d44["collective_bytes"] / c["repro_coll"]
+        limit = c.get("coll_ratio", TRAIN44_COLL_RATIO)
         log(f"phase 16: {arch} decode step on a {DECODE44_SHAPE['mesh']} "
             f"fake mesh: collective bytes {d44['collective_bytes']:.0f} "
             f"({coll:.3f}x repro's {c['repro_coll']}) "
@@ -3652,9 +3682,9 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
         require(not d44["whole_vocab_ops"],
                 f"phase 16: the {arch} decode cell makes the whole "
                 f"vocabulary in {d44['whole_vocab_ops']}")
-        require(coll <= TRAIN44_COLL_RATIO,
+        require(coll <= limit,
                 f"phase 16: the {arch} decode cell's collective bytes are "
-                f"{coll:.3f}x repro's (limit {TRAIN44_COLL_RATIO})")
+                f"{coll:.3f}x repro's (limit {limit})")
 
     if rates is not None:
         log(f"phase 16: bf16 matmul {rates['matmul_flops_per_s'] / 1e12:.1f}"
@@ -4114,7 +4144,7 @@ def main(argv=None) -> int:
         # own counts, then each request held against a plain search at its
         # rung
         K.reset_launch_counts()
-        rag = rag_phase(torch, np, idx, eval_q, dev)
+        rag = rag_phase(torch, np, idx, eval_q, dev, n_req=RAG_REQUESTS)
         rag_launches = K.launch_counts()
         log("launches on the RAG path: " + json.dumps(rag_launches))
         for name in ("gather_rows_dist", "twotower_score"):

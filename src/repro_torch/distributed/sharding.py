@@ -226,6 +226,9 @@ class ShardingCtx:
         self.mesh = mesh
         self.profile = profile
         self.fallbacks: List[str] = []
+        # mesh dimensions a loss path's sequence is folded into rows over
+        # (``sequence_fold``)
+        self.seq_fold: Tuple[int, ...] = ()
 
     def constrain(self, x, logical_axes: Sequence[Optional[str]]):
         """``x`` itself off a mesh.  On one: the rank checked and the spec
@@ -243,8 +246,64 @@ class ShardingCtx:
             context="act",
         )
         if isinstance(x, DTensor):
-            return x.redistribute(self.mesh, placements(self.mesh, spec))
+            return x.redistribute(self.mesh,
+                                  self._keep_split(x, logical_axes, spec))
         return x
+
+    # activation axes whose fallback the models split by hand (uneven
+    # heads and vocabularies, ``models.common.own_part``)
+    SPLIT_AXES = ("act_heads", "act_vocab")
+
+    def _keep_split(self, x, logical_axes, spec) -> Tuple[Placement, ...]:
+        """``spec``'s placements, but where a dimension of ``SPLIT_AXES``
+        fell back to replicated and ``x`` is already sharded on it over
+        mesh axes of its rule: those shards stay (work split on purpose, as
+        GSPMD splits a replicated operand, is not gathered back)."""
+        out = list(placements(self.mesh, spec))
+        for i, (name, p) in enumerate(zip(self.mesh.mesh_dim_names,
+                                          x.placements)):
+            if not (type(p) is Shard and out[i].is_replicate()
+                    and spec[p.dim] is None
+                    and logical_axes[p.dim] in self.SPLIT_AXES):
+                continue
+            rule = self.profile.rules.get(logical_axes[p.dim])
+            axes = (rule,) if isinstance(rule, str) else tuple(rule or ())
+            if name in axes:
+                out[i] = p
+        return tuple(out)
+
+    def sequence_fold(self, x) -> "ShardingCtx":
+        """The context a loss path runs under when the rows of the (B, S,
+        …) DTensor ``x`` fall back to replicated over mesh axes of
+        ``ROW_RULE`` whose rank count ``k`` divides S: the same rules, with
+        ``seq_fold`` naming those mesh dimensions.  The caller then folds
+        each row's sequence into ``k`` rows (``models.common.fold_rows``),
+        which the axes divide: every token-wise product, norm and residual
+        runs on each rank's own ``S / k`` positions (the work GSPMD splits
+        across a replicated operand) instead of the whole rows on every
+        rank, and attention gathers the keys back.  ``self`` for anything
+        else."""
+        if self.mesh is None or self.profile is None or self.seq_fold or \
+                not isinstance(x, DTensor) or x.ndim < 2:
+            return self
+        names = self.mesh.mesh_dim_names
+        rule = self.profile.rules.get("act_batch")
+        axes = (rule,) if isinstance(rule, str) else tuple(rule or ())
+        dims = tuple(i for i, n in enumerate(names) if n in axes
+                     and n in ROW_RULE and x.placements[i].is_replicate())
+        rows = resolve_axes(self.mesh, ("act_batch",), x.shape[:1],
+                            self.profile)[0]
+        used = () if rows is None else (rows,) if isinstance(rows, str) \
+            else tuple(rows)
+        dims = tuple(i for i in dims if names[i] not in used)
+        k = 1
+        for i in dims:
+            k *= self.mesh.size(i)
+        if not dims or x.shape[1] % k:
+            return self
+        ctx = ShardingCtx(self.mesh, self.profile)
+        ctx.fallbacks, ctx.seq_fold = self.fallbacks, dims
+        return ctx
 
     def gather_fsdp(self, params, dtype=None, keep: Sequence[str] = (),
                     tp_only: bool = False):

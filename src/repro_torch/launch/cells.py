@@ -175,7 +175,9 @@ class Loops:
 
         grow = [max(a, b) for a, b in zip(growth("temp"), growth("held"))]
         bound = min(r["temp"] + g for r, g in zip(runs, grow))
-        return int(math.ceil(max(bound, max(r["temp"] for r in runs))))
+        # to the byte: the least squares' float noise is no growth
+        return int(math.ceil(round(max(bound, max(r["temp"] for r in runs)),
+                                   3)))
 
 
 @dataclasses.dataclass

@@ -104,7 +104,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     from repro_torch.launch import gate_cell
     from repro_torch.launch.cells import build_cell, lower_cell
     from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.models.model import model_flops_per_step
+    from repro_torch.launch.roofline import product_flops
 
     check_device(device)
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -137,7 +137,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             cell = build_cell(
                 cfg, shape, mesh, num_microbatches=micro, profile=profile
             )
-            rec["model_flops"] = model_flops_per_step(cfg, shape)
+            rec["model_flops"] = product_flops(cfg, shape)
         traced = lower_cell(cell)
         rec["lower_s"] = round(time.time() - t0, 2)
         mem = traced.memory_analysis()

@@ -31,7 +31,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (
     NULL_CTX,
-    ROW_RULE,
     ShardingCtx,
     resolve_axes,
 )
@@ -166,60 +165,12 @@ class FlatParamsLM(nn.Module):
 def remat(cfg, fn, *args):
     """``fn(*args)``; with ``cfg.remat`` set and autograd recording, its
     activations are recomputed in the backward pass instead of kept
-    (``repro`` wraps the same layer bodies in ``jax.checkpoint``).  An
-    input whose rows fell back to replicated over the mesh axes that shard
-    rows is held as this rank's sequence shard over them
-    (``_held_as_shards``)."""
+    (``repro`` wraps the same layer bodies in ``jax.checkpoint``).  Rows
+    that fell back to replicated over the row axes reach it folded into
+    the sequence (``fold_rows``): it holds each rank's own positions."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(*_held_as_shards(fn, args), use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
-
-
-def _row_fallback_dims(x) -> Tuple[int, ...]:
-    """The mesh dimensions of ``ROW_RULE`` over which the (B, S, …) DTensor
-    ``x`` is replicated (its rows did not divide them), where its sequence
-    divides them; none for anything else."""
-    if not isinstance(x, DTensor) or x.ndim < 3:
-        return ()
-    mesh = x.device_mesh
-    dims = tuple(i for i, n in enumerate(mesh.mesh_dim_names or ())
-                 if n in ROW_RULE and x.placements[i].is_replicate())
-    n = int(np.prod([mesh.size(i) for i in dims]))
-    return dims if dims and x.shape[1] % n == 0 else ()
-
-
-def _held_as_shards(fn, args):
-    """``(fn', *args')`` for ``checkpoint``: each argument with row
-    fallback dimensions (``_row_fallback_dims``) passed as its sequence
-    shard over them (a local slice), which is all the checkpoint holds
-    until the backward.  The first call of ``fn'`` (the forward) reads the
-    whole input it was given; the recomputation all-gathers it from the
-    shard.  Either way ``fn`` sees the same values, and the gradient flows
-    to the whole input along the forward's graph."""
-    held = {i: _row_fallback_dims(a) for i, a in enumerate(args)}
-    held = {i: d for i, d in held.items() if d}
-    if not held:
-        return (fn, *args)
-    whole = {i: args[i] for i in held}
-    layout = {i: (args[i].placements, args[i].requires_grad) for i in held}
-    shards = list(args)
-    for i, dims in held.items():
-        x = args[i]
-        shards[i] = x.detach().redistribute(x.device_mesh, [
-            Shard(1) if j in dims else p for j, p in enumerate(x.placements)])
-
-    def run(*a):
-        a = list(a)
-        for i in held:
-            if i in whole:  # the forward: the input itself
-                a[i] = whole.pop(i)
-            else:  # the recomputation: gathered from its shard
-                pl, grad = layout[i]
-                a[i] = a[i].redistribute(a[i].device_mesh, pl) \
-                    .requires_grad_(grad)
-        return fn(*a)
-
-    return (run, *shards)
 
 
 # ---------------------------------------------------------------------------
@@ -234,12 +185,55 @@ def scalar_in(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+# the most bytes of the accumulation dtype that ``rms_norm`` works on at a
+# time in a rank's piece of a DTensor where it needs no gradient
+NORM_CHUNK_BYTES = 1 << 28
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm of the last dimension, computed in the accumulation dtype.
+    Without a gradient, a (…, S, d) DTensor whose rank's piece in that
+    dtype would pass ``NORM_CHUNK_BYTES`` is normed in runs of positions
+    of one length (``norm_runs``): no copy of the whole piece in the
+    accumulation dtype (a prefill's (B, S, d) activations are several GB
+    of it).  A plain tensor is normed whole."""
     dt, at = x.dtype, acc_dtype(x.dtype)
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                           else p for p in x.placements])
+    if isinstance(x, DTensor) and x.dim() >= 2 and not (
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+            or any(p.is_shard(x.dim() - 2) for p in x.placements)):
+        # the positions are whole on every rank: runs of the largest
+        # length that divides them and keeps a run within the bytes
+        S = x.shape[-2]
+        cap = NORM_CHUNK_BYTES * S // max(
+            1, x.to_local().numel() * torch.finfo(at).bits // 8)
+        step = next(n for n in range(max(1, min(cap, S)), 0, -1)
+                    if S % n == 0)
+        if step < S:
+            return norm_runs(x, w, eps, step)
     xf = x.to(at)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + w.to(at))).to(dt)
+
+
+def norm_runs(x: torch.Tensor, w: torch.Tensor, eps: float,
+              step: int) -> torch.Tensor:
+    """``rms_norm``'s formula a run of ``step`` positions (dimension -2,
+    which ``step`` divides) at a time, each written into one output laid
+    out as ``x``: every run is the same operations on the same number of
+    rows, each row's as the whole input's."""
+    at = acc_dtype(x.dtype)
+    out = batch_local(torch.empty_like, x)
+    scale = 1.0 + w.to(at)
+    for r in range(0, x.shape[-2], step):
+        xf = x.narrow(-2, r, step).to(at)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        out.narrow(-2, r, step).copy_((y * scale).to(x.dtype))
+    return out
 
 
 def rope_freqs(head_dim: int, theta: float, device=None,
@@ -321,9 +315,61 @@ class DecodeRows:
     def hold(self, x):
         return self.ctx.constrain(x, self.AXES) if self.on else x
 
-    def weights(self, params, dtype, keep):
-        return self.ctx.gather_fsdp(params, dtype, keep, tp_only=True) \
-            if self.on else params
+    def weights(self, params, dtype, keep, rows_first=()):
+        """The layer's weights for a decode step: the tensor-parallel ones'
+        FSDP shards gathered (cast to ``dtype`` but for ``keep``), but for
+        those named in ``rows_first``, left on their shards for
+        ``times``."""
+        if not self.on:
+            return params
+        return {**self.ctx.gather_fsdp(
+            {k: w for k, w in params.items() if k not in rows_first},
+            dtype, keep, tp_only=True),
+            **{k: params[k] for k in params if k in rows_first}}
+
+    def spread(self, x):
+        """The rows ``x`` (B, S, d) whole and their columns sharded as the
+        weights' rows are (FSDP's axes: the profile's "embed" rule): every
+        product with a weight whose rows are so sharded is then each
+        rank's block, summed (``rows_times``), and the elementwise work
+        between them (a token-shift lerp) moves nothing."""
+        if not self.on:
+            return x
+        rule = self.ctx.profile.rules.get("embed")
+        axes = (rule,) if isinstance(rule, str) else tuple(rule or ())
+        mesh = x.device_mesh
+        return x.redistribute(mesh, [
+            Shard(x.ndim - 1) if n in axes else
+            Replicate() if p.is_shard(0) else p
+            for n, p in zip(mesh.mesh_dim_names, x.placements)])
+
+    def times(self, x, *ws) -> list:
+        """``[x @ w for w in ws]``; on a decode step's rows, each product
+        moves the rows where they are fewer bytes than the weight's block
+        (``rows_times``: the rows gathered once for all of ``ws``), else
+        the weight's FSDP shards (gathered as ``weights`` gathers them)."""
+        if not self.on or torch.is_grad_enabled() and (
+                x.requires_grad or any(w.requires_grad for w in ws)):
+            return [x @ w for w in ws]
+        # columns "model" does not shard (a LoRA's, a state's): each rank
+        # makes its block, gathered back to the layout ``x @ w`` gives
+        cut = split_dims(self.ctx, "act_ff")
+        out = []
+        for o, w in zip(rows_times(x, ws, cut), ws):
+            if o is None:
+                o = x @ self.ctx.gather_fsdp(w, tp_only=True)
+            elif any(o.placements[i].is_shard() and w.placements[i]
+                     .is_replicate() for i in cut):
+                o = o.redistribute(o.device_mesh, [
+                    Replicate() if i in cut and w.placements[i].is_replicate()
+                    else p for i, p in enumerate(o.placements)])
+            out.append(o)
+        return out
+
+
+# the rows of no decode step: every method of it leaves its input as it is
+# and ``times`` is the plain product
+NO_ROWS = DecodeRows(NULL_CTX, None)
 
 
 def new_layers_like(cache: torch.Tensor) -> torch.Tensor:
@@ -395,22 +441,192 @@ def from_shard(local, mesh, roles, dims, shape) -> DTensor:
                       shape)
 
 
-def _attention_shards(q, k, v, pos_q, pos_k):
+def fold_rows(t, dims) -> DTensor:
+    """The (B, S, …) DTensor ``t``, replicated over the mesh dimensions
+    ``dims`` (``ShardingCtx.sequence_fold``), as (k·B, S/k, …) rows
+    sharded over them (k their rank count): each rank's rows are its own
+    contiguous S/k positions of every row, taken where it lies (no bytes
+    move; the gradient's way back gathers them).  Row j·B + b of a shard
+    over the rows' other mesh dimensions is row b's j-th piece
+    (``_unfold_rows``)."""
+    mesh = t.device_mesh
+    piece = t.redistribute(mesh, [Shard(1) if i in dims else p
+                                  for i, p in enumerate(t.placements)])
+    k = int(np.prod([mesh.size(i) for i in dims]))
+    B, S = t.shape[:2]
+    return _from_rows(piece.to_local(), mesh,
+                      [Shard(0) if i in dims else p
+                       for i, p in enumerate(t.placements)],
+                      (k * B, S // k) + tuple(t.shape[2:]))
+
+
+def _unfold_rows(t: torch.Tensor, k: int) -> torch.Tensor:
+    """The (k·B, S/k, …) rows of ``fold_rows`` gathered, as the (B, S, …)
+    rows they were."""
+    kb, s = t.shape[:2]
+    t = t.reshape(k, kb // k, s, *t.shape[2:]).transpose(0, 1)
+    return t.reshape(kb // k, k * s, *t.shape[3:])
+
+
+def split_dims(ctx: ShardingCtx, logical: str, *ts) -> Tuple[int, ...]:
+    """The mesh dimensions of the activation axis ``logical``'s rule over
+    which every one of the DTensors ``ts`` is replicated: where the
+    dimension the rule shards did not divide and fell back, the work that
+    ``column_split`` / ``row_split`` split by hand.  () off a mesh."""
+    if ctx.mesh is None or ctx.profile is None or not all(
+            isinstance(t, DTensor) for t in ts):
+        return ()
+    rule = ctx.profile.rules.get(logical)
+    axes = (rule,) if isinstance(rule, str) else tuple(rule or ())
+    return tuple(i for i, n in enumerate(ctx.mesh.mesh_dim_names)
+                 if n in axes and all(t.placements[i].is_replicate()
+                                      for t in ts))
+
+
+def own_part(w: DTensor, dim: int, lo: int, n: int) -> torch.Tensor:
+    """Positions ``[lo, lo + n)`` of dimension ``dim`` of the replicated
+    DTensor ``w``, as a local tensor; its gradient (zero elsewhere) is each
+    rank's part of a pending sum."""
+    return w.to_local(grad_placements=[Partial()] * w.device_mesh.ndim) \
+        .narrow(dim, lo, n)
+
+
+def column_split(x, w, dims, bias=None) -> Optional[DTensor]:
+    """``x @ w (+ bias)`` for a replicated weight ``w`` of shape (d, N, …)
+    whose N the mesh dimensions ``dims`` do not divide, with ``x``
+    replicated over them: each rank multiplies its rows by its own block
+    of N (the block an uneven ``Shard`` gives, ⌈N / k⌉ or fewer) and adds
+    its block of the replicated ``bias`` (N, …), and the (…, N, …) result
+    is sharded on N over ``dims`` (work GSPMD splits across a replicated
+    operand; the port's DTensor would do it whole on every rank).  The
+    gradients of ``x``, ``w`` and ``bias`` are each rank's part, pending
+    sums over ``dims``.  None where ``w`` is not replicated on every mesh
+    dimension or ``x`` is a pending sum."""
+    mesh = w.device_mesh
+    if not all(p.is_replicate() for p in w.placements) or any(
+            p.is_partial() for p in x.placements):
+        return None
+    shape, off = compute_local_shape_and_global_offset(
+        w.shape, mesh, [Shard(1) if i in dims else Replicate()
+                        for i in range(mesh.ndim)])
+    wl = own_part(w, 1, off[1], shape[1])
+    xl = x.to_local(grad_placements=[Partial() if i in dims else p
+                                     for i, p in enumerate(x.placements)])
+    out = (xl @ wl.reshape(wl.shape[0], -1)).reshape(
+        *xl.shape[:-1], *wl.shape[1:])
+    if bias is not None:
+        out = out + own_part(bias, 0, off[1], shape[1])
+    return _from_rows(out, mesh, [Shard(x.ndim - 1) if i in dims else p
+                                  for i, p in enumerate(x.placements)],
+                      tuple(x.shape[:-1]) + tuple(w.shape[1:]))
+
+
+def cut_columns(x, w, ctx: ShardingCtx, logical: str = "heads"):
+    """``x @ w`` for a decode step's rows and a weight (d, n) whose columns
+    every rank of the mesh dimensions of ``logical``'s rule holds whole
+    (KV heads the rule does not shard): each rank takes its own block of
+    the columns where it lies, gathers that block's FSDP shards, makes
+    only those columns of its rows, and the blocks are gathered back to
+    the layout ``x @ w`` gives (a decode step's few rows: GSPMD splits
+    this work too).  ``x @ w`` itself where that does not apply, the rows
+    are whole (a long cell's batch of one, where DTensor's own product
+    moves less) or a gradient is recorded."""
+    dims = split_dims(ctx, logical, w) if isinstance(w, DTensor) and \
+        isinstance(x, DTensor) and any(p.is_shard(0) for p in x.placements) \
+        and not (torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad)) else ()
+    if not dims or any(p.is_shard(1) for p in w.placements) or not all(
+            x.placements[i].is_replicate() or x.placements[i].is_partial()
+            or x.placements[i].is_shard(x.ndim - 1) for i in dims):
+        return x @ w
+    mesh = w.device_mesh
+    # rows cut or pending over these dimensions are made whole there (a
+    # few rows' bytes)
+    x = x.redistribute(mesh, [Replicate() if i in dims else p
+                              for i, p in enumerate(x.placements)])
+    pl = [Shard(1) if i in dims else p for i, p in enumerate(w.placements)]
+    shape, off = compute_local_shape_and_global_offset(w.shape, mesh, pl)
+    block = _from_rows(w.to_local().narrow(1, off[1], shape[1]), mesh, pl,
+                       tuple(w.shape))
+    # the block's FSDP shards gathered: each rank's rows meet its whole
+    # block, as a tensor-parallel weight gathered at use
+    out = x @ block.redistribute(mesh, [Replicate() if p.is_shard(0) else p
+                                        for p in pl])
+    return out.redistribute(mesh, [Replicate() if i in dims else p
+                                   for i, p in enumerate(out.placements)])
+
+
+def row_split(a, w, dims) -> Optional[DTensor]:
+    """``a.flatten(-2) @ w.flatten(0, 1)`` for ``a`` (…, N, h) sharded on
+    N over the mesh dimensions ``dims`` (``column_split``'s output) and a
+    replicated ``w`` of shape (N, h, d): each rank contracts its own block
+    of N, and the (…, d) result is a pending sum over ``dims`` (tensor
+    parallelism's output projection).  None where the layouts differ."""
+    mesh = w.device_mesh
+    nd = a.ndim - 2
+    if not dims or not all(p.is_replicate() for p in w.placements) or any(
+            a.placements[i] != Shard(nd) for i in dims) or any(
+            p.is_partial() or p.is_shard(nd)
+            for i, p in enumerate(a.placements) if i not in dims):
+        return None
+    _, off = compute_local_shape_and_global_offset(a.shape, mesh,
+                                                    a.placements)
+    al = a.to_local()
+    wl = own_part(w, 0, off[nd], al.shape[nd])
+    out = al.flatten(-2) @ wl.reshape(-1, wl.shape[-1])
+    return _from_rows(out, mesh, [Partial() if i in dims else p
+                                  for i, p in enumerate(a.placements)],
+                      tuple(a.shape[:-2]) + (w.shape[-1],))
+
+
+class LocalKV:
+    """The keys and values of a loss path's attention that every rank of
+    the query heads' mesh dimensions would make whole: ``make(lo, hi)``
+    gives this rank's K and V of KV heads ``[lo, hi)`` for its own rows,
+    as local tensors; attention asks for the ones its query heads read
+    (``_attention_shards``)."""
+
+    def __init__(self, num_heads: int, make):
+        self.num_heads = num_heads
+        self.make = make
+
+
+def _attention_shards(q, k, v, pos_q, pos_k, fold=()):
     """(q, k, v, pos_q, pos_k, wrap) as this rank's pieces when the queries
     are a DTensor sharded only over their rows and heads: the keys, values
     and positions on the same rows, K / V cut to the heads this rank's
     queries read (GQA: a whole group, or the one KV head of a part of a
     group); ``wrap`` makes the output a DTensor laid out as the queries.
+    Rows folded over the mesh dimensions ``fold`` (``fold_rows``) attend
+    to their whole rows: the keys, values and their positions gathered
+    over them and unfolded, each rank's queries at their own positions.
     None for any other layout."""
     roles = shard_roles(q, 2)
     if roles is None:
         return None
+    roles = ["fold" if i in fold and r == "batch" else r
+             for i, r in enumerate(roles)]
     mesh = q.device_mesh
-    G = q.shape[2] // k.shape[2]
+    local_kv = isinstance(k, LocalKV)
+    G = q.shape[2] // (k.num_heads if local_kv else k.shape[2])
     _, off = compute_local_shape_and_global_offset(q.shape, mesh,
                                                     q.placements)
     ql = q.to_local()
     n, h0 = ql.shape[2], off[2]
+    pql = to_shard(pos_q, mesh, roles, {"batch": 0, "fold": 0})
+    pkl = to_shard(pos_k, mesh, roles, {"batch": 0})
+
+    def wrap(out):
+        return from_shard(out, mesh, roles,
+                          {"batch": 0, "fold": 0, "heads": 2},
+                          tuple(q.shape))
+
+    if local_kv:  # each query head meets its own KV head, made here
+        lo = h0 // G
+        kl, vl = k.make(lo, (h0 + n - 1) // G + 1 if n else lo)
+        idx = torch.div(torch.arange(h0, h0 + n, device=ql.device), G,
+                        rounding_mode="floor") - lo
+        return ql, kl[:, :, idx], vl[:, :, idx], pql, pkl, wrap
     kv_sharded = isinstance(k, DTensor) and "heads" in roles and all(
         k.placements[i] == Shard(2) for i, r in enumerate(roles)
         if r == "heads")
@@ -420,16 +636,16 @@ def _attention_shards(q, k, v, pos_q, pos_k):
         kv, kdims = slice(h0 // G, h0 // G + n // G), {"batch": 0}
     elif G % n == 0 and h0 % n == 0:
         kv, kdims = slice(h0 // G, h0 // G + 1), {"batch": 0}
-    else:
-        return None
+    else:  # a block of heads across groups (an uneven split): each query
+        # head meets its own KV head
+        kv = torch.div(torch.arange(h0, h0 + n, device=ql.device), G,
+                       rounding_mode="floor")
+        kdims = {"batch": 0}
     kl, vl = (to_shard(t, mesh, roles, kdims)[:, :, kv] for t in (k, v))
-    pql, pkl = (to_shard(t, mesh, roles, {"batch": 0})
-                for t in (pos_q, pos_k))
-
-    def wrap(out):
-        return from_shard(out, mesh, roles, {"batch": 0, "heads": 2},
-                          tuple(q.shape))
-
+    if "fold" in roles:
+        n_fold = int(np.prod([mesh.size(i) for i, r in enumerate(roles)
+                              if r == "fold"]))
+        kl, vl, pkl = (_unfold_rows(t, n_fold) for t in (kl, vl, pkl))
     return ql, kl, vl, pql, pkl, wrap
 
 
@@ -444,10 +660,12 @@ def blockwise_attention(
     window: Optional[int] = None,
     chunk: int = 1024,
     q_chunk: Optional[int] = 512,
+    fold: Tuple[int, ...] = (),
 ) -> torch.Tensor:
     """GQA/MQA blockwise attention; returns (B, Sq, Hq, D) in q.dtype.
     Queries that are a DTensor sharded over their rows and heads attend on
-    each rank's shards (``_attention_shards``).
+    each rank's shards (``_attention_shards``; rows folded over the mesh
+    dimensions ``fold`` attend to their whole rows).
 
     An outer loop over QUERY chunks of ``q_chunk`` (the tail padded with
     ``pos_q = -1``, then sliced off) wraps an inner loop over KV chunks of
@@ -456,8 +674,10 @@ def blockwise_attention(
     model).  A fully masked query row (a pad row) ends as ``repro``'s does:
     the mean of the values.
     """
-    local = _attention_shards(q, k, v, pos_q, pos_k) \
+    local = _attention_shards(q, k, v, pos_q, pos_k, fold) \
         if isinstance(q, DTensor) else None
+    if local is None and isinstance(k, LocalKV):
+        raise ValueError("LocalKV needs queries sharded on their heads")
     if local is not None:
         *args, wrap = local
         return wrap(blockwise_attention(
@@ -480,7 +700,7 @@ def blockwise_attention(
         return torch.cat(outs, dim=1)[:, :Sq]
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
-    G = Hq // Hkv
+    G = Hq // Hkv if Hkv else 1  # a rank's block of no heads
     scale = float(1.0 / np.sqrt(D))
     chunk = int(min(chunk, Sk))
     if Sk % chunk:  # ragged tail: pad with pos_k = -1 (masked everywhere)
@@ -720,11 +940,14 @@ class _VocabParallelEmbed(torch.autograd.Function):
     dimensions that shard the vocabulary (``dims``; exact: one shard holds
     each row).  The table's shards of its second dimension (FSDP's, over
     ``gather_dims``) are gathered first and its gradient reduce-scattered
-    back.  The backward accumulates each token's gradient into the shard
-    that holds its row: no rank makes the whole table."""
+    back over those of them that shard the tokens (``split``); over the
+    others every rank holds the same tokens and the same gradient, and
+    keeps its own columns of it.  The backward accumulates each token's
+    gradient into the shard that holds its row: no rank makes the whole
+    table."""
 
     @staticmethod
-    def forward(ctx, emb, tokens, lo, mesh, dims, gather_dims):
+    def forward(ctx, emb, tokens, lo, mesh, dims, gather_dims, split):
         # the innermost mesh dim first, each gather along the columns of
         # the transposed table (every buffer keeps the shard's rows only)
         for d in reversed(gather_dims):
@@ -737,7 +960,8 @@ class _VocabParallelEmbed(torch.autograd.Function):
         for d in dims:
             rows = _all_reduce(rows, "sum", mesh, d)
         ctx.save_for_backward(idx, inside)
-        ctx.n_rows, ctx.mesh, ctx.gather_dims = emb.shape[0], mesh, gather_dims
+        ctx.n_rows, ctx.mesh = emb.shape[0], mesh
+        ctx.gather_dims, ctx.split = gather_dims, split
         return rows
 
     @staticmethod
@@ -747,9 +971,13 @@ class _VocabParallelEmbed(torch.autograd.Function):
         grad.index_put_((idx,), torch.where(inside[..., None], g, 0.0),
                         accumulate=True)
         for d in ctx.gather_dims:
-            grad = _wait(_reduce_scatter_dim(
-                grad.t().contiguous(), "sum", 0, (ctx.mesh, d))).t()
-        return grad, None, None, None, None, None
+            if d in ctx.split:
+                grad = _wait(_reduce_scatter_dim(
+                    grad.t().contiguous(), "sum", 0, (ctx.mesh, d))).t()
+            else:
+                n = grad.shape[1] // ctx.mesh.size(d)
+                grad = grad[:, ctx.mesh.get_local_rank(d) * n:][:, :n]
+        return grad, None, None, None, None, None, None
 
 
 def _lookup_gathered(emb, tokens, lo, mesh, dims, gather_dims, placements):
@@ -816,8 +1044,9 @@ def embed_rows(emb: torch.Tensor, tokens):
     elif not dims:  # many tokens: DTensor's lookup gathers the columns
         return emb[tokens.long()]
     else:
-        out = _VocabParallelEmbed.apply(local, t_loc, offset[0], mesh, dims,
-                                        gather_dims)
+        out = _VocabParallelEmbed.apply(
+            local, t_loc, offset[0], mesh, dims, gather_dims,
+            tuple(d for d in gather_dims if rows[d].is_shard(0)))
     return _from_rows(out, mesh, rows, tuple(tokens.shape) + emb.shape[1:])
 
 
@@ -826,54 +1055,92 @@ def head_logits(x: torch.Tensor, head: torch.Tensor, ctx=NULL_CTX):
     (``ShardingCtx.gather_fsdp``), as the loss path needs them.  Without a
     gradient and with fewer rows than a shard of the head has columns (a
     decode step), the rows are gathered in the head's place
-    (``_rows_times_head``): the rows' bytes move, not the head's."""
+    (``rows_times``): the rows' bytes move, not the head's."""
     if isinstance(x, DTensor) and isinstance(head, DTensor) and not (
             torch.is_grad_enabled()
             and (x.requires_grad or head.requires_grad)):
-        out = _rows_times_head(x, head)
+        out = rows_times(x, [head],
+                         cut=split_dims(ctx, "act_vocab", head))[0]
         if out is not None:
             return out
-    return x @ ctx.gather_fsdp(head)
+    head = ctx.gather_fsdp(head)
+    dims = split_dims(ctx, "act_vocab", x, head)
+    out = column_split(x, head, dims) if dims else None
+    return x @ head if out is None else out
 
 
-def _rows_times_head(x: DTensor, head: DTensor):
-    """Each rank multiplies every row the FSDP dimensions hold (gathered)
-    by its own block of the head's rows and columns; the partial sums are
-    reduce-scattered back to each rank's rows (all-reduced where the rows
-    are not split), in ``x``'s dtype.  None where the layouts do not fit
-    (the rows split on another dimension, the head's rows whole) or the
-    head moves fewer bytes."""
-    mesh = head.device_mesh
-    fsdp = [i for i, p in enumerate(head.placements) if p.is_shard(0)]
+def rows_times(x: DTensor, heads, cut=()) -> list:
+    """``[x @ head for head in heads]`` without a gradient, for rows ``x``
+    (a DTensor sharded on its rows) and weights (d, n) whose rows are
+    FSDP-sharded: each rank multiplies every row the FSDP dimensions hold
+    (gathered once for all the weights) by its own block of the weight's
+    rows and columns, and the partial sums are reduce-scattered back to
+    each rank's rows (all-reduced where the rows are not split), in
+    ``x``'s dtype: the rows' bytes move, not the weight's.  Rows already
+    spread over their columns as the weight's rows are
+    (``DecodeRows.spread``) meet each rank's block with no gather.  Over
+    the mesh dimensions ``cut`` where a weight is replicated (a vocabulary
+    or a state "model" does not shard), each rank takes its own block of
+    its columns, and that result is sharded on them.  An entry is None
+    where the layouts do not fit (the rows split on another dimension,
+    the weight's rows whole) or the weight moves fewer bytes."""
+    mesh = x.device_mesh
     last = x.ndim - 1
     x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
                               for p in x.placements])  # a pending sum
-    if not fsdp or any(not (p.is_replicate() or p.is_shard(0))
-                       for p in x.placements) or any(
-            not (p.is_replicate() or p.is_shard(0) or p.is_shard(1))
-            for p in head.placements) or any(
-            x.placements[i].is_shard() and head.placements[i].is_shard(1)
-            for i in range(mesh.ndim)):
-        return None
-    split = [d for d in fsdp if x.placements[d].is_shard(0)]
-    xl, hl = x.to_local(), head.to_local()
-    n = xl.shape[0] * int(np.prod([mesh.size(d) for d in split]))
-    if n * int(np.prod(xl.shape[1:last])) >= hl.shape[1]:
-        return None
-    n_loc, pos = xl.shape[0], 0
-    for d in reversed(split):  # the innermost mesh dim first
-        xl = _wait(_all_gather_dim(xl.contiguous(), 0, (mesh, d)))
-    _, off = compute_local_shape_and_global_offset(head.shape, mesh,
-                                                    head.placements)
-    part = xl[..., off[0]:off[0] + hl.shape[0]] @ hl
-    for d in fsdp:
-        part = (_wait(_reduce_scatter_dim(part.contiguous(), "sum", 0,
-                                          (mesh, d))) if d in split
-                else _all_reduce(part, "sum", mesh, d))
-    placements = [Shard(last) if hp.is_shard(1) else xp
-                  for xp, hp in zip(x.placements, head.placements)]
-    return _from_rows(part, mesh, placements,
-                      tuple(x.shape[:-1]) + (head.shape[1],))
+    gathered = {}
+    outs = []
+    for head in heads:
+        fsdp = [i for i, p in enumerate(head.placements) if p.is_shard(0)]
+        cols = [Shard(1) if i in cut and p.is_replicate() else p
+                for i, p in enumerate(head.placements)]
+        spread = bool(fsdp) and all(
+            x.placements[d].is_shard(last) for d in fsdp) and all(
+            p.is_replicate() for i, p in enumerate(x.placements)
+            if i not in fsdp)
+        if not fsdp or any(not (p.is_replicate() or p.is_shard(0)
+                                or p.is_shard(1)) for p in cols) or not (
+                spread or all(p.is_replicate() or p.is_shard(0)
+                              for p in x.placements) and not any(
+                    x.placements[i].is_shard() and cols[i].is_shard(1)
+                    for i in range(mesh.ndim))):
+            outs.append(None)
+            continue
+        shape, off = compute_local_shape_and_global_offset(head.shape, mesh,
+                                                            cols)
+        hl = head.to_local()  # this rank's block of any replicated columns
+        hl = hl.narrow(1, off[1], shape[1]) if hl.shape[1] != shape[1] \
+            else hl
+        if spread:  # each rank's block of rows and columns, no gather
+            part = x.to_local() @ hl
+            for d in fsdp:
+                part = _all_reduce(part, "sum", mesh, d)
+            outs.append(_from_rows(
+                part, mesh, [Shard(last) if hp.is_shard(1) else Replicate()
+                             for hp in cols],
+                tuple(x.shape[:-1]) + (head.shape[1],)))
+            continue
+        split = tuple(d for d in fsdp if x.placements[d].is_shard(0))
+        n = x.to_local().shape[0] * int(np.prod([mesh.size(d)
+                                                 for d in split]))
+        if n * int(np.prod(x.shape[1:last])) >= hl.shape[1]:
+            outs.append(None)
+            continue
+        if split not in gathered:
+            xl = x.to_local()
+            for d in reversed(split):  # the innermost mesh dim first
+                xl = _wait(_all_gather_dim(xl.contiguous(), 0, (mesh, d)))
+            gathered[split] = xl
+        part = gathered[split][..., off[0]:off[0] + hl.shape[0]] @ hl
+        for d in fsdp:
+            part = (_wait(_reduce_scatter_dim(part.contiguous(), "sum", 0,
+                                              (mesh, d))) if d in split
+                    else _all_reduce(part, "sum", mesh, d))
+        placements = [Shard(last) if hp.is_shard(1) else xp
+                      for xp, hp in zip(x.placements, cols)]
+        outs.append(_from_rows(part, mesh, placements,
+                               tuple(x.shape[:-1]) + (head.shape[1],)))
+    return outs
 
 
 def _from_rows(local: torch.Tensor, mesh, placements, shape) -> DTensor:
@@ -991,9 +1258,22 @@ def cross_entropy(
     return torch.mean(nll)
 
 
-def next_token_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def next_token_ce(logits: torch.Tensor, labels: torch.Tensor,
+                  fold: Tuple[int, ...] = ()) -> torch.Tensor:
     """Mean cross entropy of each position's logits (B, S, V) against the
-    next position's label; label -1 is ignored."""
+    next position's label; label -1 is ignored.  Logits of rows folded over
+    the mesh dimensions ``fold`` (``fold_rows``) meet the next labels
+    folded the same way, the last position masked."""
+    if fold:
+        mesh = logits.device_mesh
+        if not isinstance(labels, DTensor):
+            labels = DTensor.from_local(labels, mesh,
+                                        [Replicate()] * mesh.ndim,
+                                        run_check=False)
+        nxt = fold_rows(torch.cat(
+            [labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1), fold)
+        return cross_entropy(logits, torch.clamp_min(nxt, 0),
+                             (nxt >= 0).to(torch.float32))
     mask = (labels[:, 1:] >= 0).to(torch.float32)
     return cross_entropy(logits[:, :-1], torch.clamp_min(labels[:, 1:], 0),
                          mask)

@@ -37,6 +37,7 @@ from repro_torch.models.common import (
     glu_mlp,
     head_logits,
     DecodeRows,
+    cut_columns,
     new_layers_like,
     next_token_ce,
     remat,
@@ -111,9 +112,14 @@ class EncDecLM(FlatParamsLM):
                 if k.startswith(side + "/")}
 
     # ------------------------------------------------------------------ layers
-    def _proj(self, h, w):
+    def _proj(self, h, w, ctx=None):
+        """``h @ w`` over w's trailing dimensions; with a decode step's
+        ``ctx``, columns every "model" rank holds whole made a block a rank
+        (``cut_columns``)."""
         B, S, d = h.shape
-        return (h @ w.to(h.dtype).reshape(d, -1)).reshape(B, S, *w.shape[1:])
+        w2 = w.to(h.dtype).reshape(d, -1)
+        out = h @ w2 if ctx is None else cut_columns(h, w2, ctx)
+        return out.reshape(B, S, *w.shape[1:])
 
     def _out(self, p, prefix, a, dt):
         B, S = a.shape[:2]
@@ -285,9 +291,11 @@ class EncDecLM(FlatParamsLM):
                                self._layer_keep())
             h = rms_norm(x, p_l["attn_norm"], cfg.norm_eps)
             q = apply_rope(self._proj(h, p_l["wq"]), pos_q, cfg.rope_theta)
-            k = apply_rope(self._proj(h, p_l["wk"]), pos_q, cfg.rope_theta)
+            k = apply_rope(self._proj(h, p_l["wk"], ctx), pos_q,
+                           cfg.rope_theta)
             ks[i], vs[i], cp = cache_update(cache["k"][i], cache["v"][i], cp,
-                                            k, self._proj(h, p_l["wv"]), t)
+                                            k, self._proj(h, p_l["wv"], ctx),
+                                            t)
             x = rows.hold(x + self._out(
                 p_l, "", decode_attention(q, ks[i], vs[i], pos_q, cp), dt))
             h = rms_norm(x, p_l["xattn_norm"], cfg.norm_eps)

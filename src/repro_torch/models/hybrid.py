@@ -43,6 +43,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.ssm import (
     MAMBA_KEEP,
+    MAMBA_ROWS_FIRST,
     mamba_block_decode,
     mamba_block_full,
     mamba_param_table,
@@ -281,9 +282,10 @@ class HybridLM(FlatParamsLM):
             x.dtype, self.KEEP)}
         x = rows.hold(x)
         for i in range(cfg.num_layers):
-            p_l = rows.weights(self._layer(params, i), x.dtype, MAMBA_KEEP)
+            p_l = rows.weights(self._layer(params, i), x.dtype, MAMBA_KEEP,
+                               MAMBA_ROWS_FIRST)
             out, new_conv[i], new_ssm[i] = mamba_block_decode(
-                p_l, x, cfg, cache["conv"][i], cache["ssm"][i], ctx)
+                p_l, x, cfg, cache["conv"][i], cache["ssm"][i], ctx, rows)
             x = rows.hold(x + out)
             if (i + 1) % cfg.attn_every == 0:
                 x, new_k[app], new_v[app], cp = self._shared_decode(

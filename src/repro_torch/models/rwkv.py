@@ -35,6 +35,7 @@ from repro_torch.models.common import (
     embed_rows,
     from_shard,
     head_logits,
+    NO_ROWS,
     DecodeRows,
     new_layers_like,
     next_token_ce,
@@ -48,6 +49,10 @@ from repro_torch.models.transformer import TensorSpec
 
 TMIX_LORA = 32
 DECAY_LORA = 64
+# the weights whose rows (their products' contraction) a decode step's
+# products may meet with the token's rows gathered instead
+# (``DecodeRows.times``)
+ROWS_FIRST = ("wr", "wk", "wv", "wg", "tmix_w1", "dec_w1", "cm_wk", "cm_wr")
 
 
 def _group_norm_heads(y, scale, bias, eps, H):
@@ -247,20 +252,21 @@ class RWKVLM(FlatParamsLM):
         return rms_norm(x, params["ln0"], self.cfg.norm_eps)
 
     # -------------------------------------------------------------- time mix
-    def _tmix_inputs(self, p, x, x_prev):
+    def _tmix_inputs(self, p, x, x_prev, rows=NO_ROWS):
         """Data-dependent token-shift lerp (ddlerp).  x, x_prev: (B, S, d).
-        Returns the feeds (xw, xk, xv, xr, xg)."""
+        Returns the feeds (xw, xk, xv, xr, xg).  ``rows.times`` makes the
+        products of rows and weights (a decode step's ``DecodeRows``)."""
         dt = x.dtype
         delta = x_prev - x
         xx = x + delta * p["mu_x"].to(dt)
-        lora = torch.tanh(xx @ p["tmix_w1"].to(dt))
+        lora = torch.tanh(rows.times(xx, p["tmix_w1"].to(dt))[0])
         lora = lora.reshape(*lora.shape[:2], 5, TMIX_LORA)
         mixes = torch.einsum("bsmk,mkd->bsmd", lora, p["tmix_w2"].to(dt))
         mixes = mixes + p["mu_5"].to(dt)  # (B, S, 5, d)
         feeds = x[:, :, None, :] + delta[:, :, None, :] * mixes
         return tuple(feeds[:, :, i] for i in range(5))
 
-    def wkv_inputs(self, p, h, h_prev):
+    def wkv_inputs(self, p, h, h_prev, rows=NO_ROWS):
         """The recurrence's inputs from the normed input ``h`` (B, S, d)
         and its shift: (r, k, v, logw) (B, S, H, hd), ``logw`` in float32
         (float64 for a float64 model), and the gate g (B, S, d)."""
@@ -268,15 +274,16 @@ class RWKVLM(FlatParamsLM):
         H, hd = cfg.num_heads, cfg.head_dim
         dt, at = h.dtype, acc_dtype(h.dtype)
         B, S, _ = h.shape
-        xw, xk, xv, xr, xg = self._tmix_inputs(p, h, h_prev)
-        r = (xr @ p["wr"].to(dt)).reshape(B, S, H, hd)
-        k = (xk @ p["wk"].to(dt)).reshape(B, S, H, hd)
-        v = (xv @ p["wv"].to(dt)).reshape(B, S, H, hd)
-        g = xg @ p["wg"].to(dt)
+        xw, xk, xv, xr, xg = self._tmix_inputs(p, h, h_prev, rows)
+        r = rows.times(xr, p["wr"].to(dt))[0].reshape(B, S, H, hd)
+        k = rows.times(xk, p["wk"].to(dt))[0].reshape(B, S, H, hd)
+        v = rows.times(xv, p["wv"].to(dt))[0].reshape(B, S, H, hd)
+        g = rows.times(xg, p["wg"].to(dt))[0]
         # the decay LoRA in float32: (xw @ w1) @ w2, the cheap order, its
         # second product on the channels of the heads each rank's r holds
         # (the heads the scan reads there)
-        ww = p["decay_base"].to(at) + (xw.to(at) @ p["dec_w1"].to(at)) \
+        ww = p["decay_base"].to(at) \
+            + rows.times(xw.to(at), p["dec_w1"].to(at))[0] \
             @ _columns_as(p["dec_w2"].to(at), r)
         logw = -torch.exp(ww).reshape(B, S, H, hd)  # log w_t <= 0
         return r, k, v, logw, g
@@ -303,14 +310,14 @@ class RWKVLM(FlatParamsLM):
         return x, S_fin, h[:, -1]
 
     # ------------------------------------------------------------ channel mix
-    def _channel_mix(self, p, h, h_prev, ctx=NULL_CTX):
+    def _channel_mix(self, p, h, h_prev, ctx=NULL_CTX, rows=NO_ROWS):
         dt = h.dtype
         xk = h + (h_prev - h) * p["cm_mu_k"].to(dt)
         xr = h + (h_prev - h) * p["cm_mu_r"].to(dt)
-        kk = torch.square(torch.relu(xk @ p["cm_wk"].to(dt)))
+        kk = torch.square(torch.relu(rows.times(xk, p["cm_wk"].to(dt))[0]))
         kk = ctx.constrain(kk, ("act_batch", None, "act_ff"))
         vv = kk @ p["cm_wv"].to(dt)
-        rr = torch.sigmoid(xr @ p["cm_wr"].to(dt))
+        rr = torch.sigmoid(rows.times(xr, p["cm_wr"].to(dt))[0])
         return rr * vv
 
     def _channel_mix_full(self, p, x, ctx):
@@ -392,16 +399,19 @@ class RWKVLM(FlatParamsLM):
         rows = DecodeRows(ctx, x)
         x = rows.hold(x)
         for i in range(cfg.num_layers):
-            p_l = rows.weights(self._layer(params, i), x.dtype, self.KEEP)
+            p_l = rows.weights(self._layer(params, i), x.dtype, self.KEEP,
+                               ROWS_FIRST)
             h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
-            r, k, v, logw, g = self.wkv_inputs(p_l, h,
-                                               cache["shift_t"][i][:, None])
+            r, k, v, logw, g = self.wkv_inputs(
+                p_l, rows.spread(h), rows.spread(cache["shift_t"][i][:, None]),
+                rows)
             y, S_new = wkv6_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0],
                                  p_l["u"], cache["wkv"][i])
             x = rows.hold(self._tmix_out(p_l, x, y[:, None], g))
             h2 = rms_norm(x, p_l["ln2"], cfg.norm_eps)
-            x = rows.hold(x + self._channel_mix(p_l, h2,
-                                                cache["shift_c"][i][:, None]))
+            x = rows.hold(x + self._channel_mix(
+                p_l, rows.spread(h2),
+                rows.spread(cache["shift_c"][i][:, None]), ctx, rows))
             wkv[i], sh_t[i], sh_c[i] = S_new, h[:, 0], h2[:, 0]
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = head_logits(x, params["lm_head"].to(x.dtype), ctx)[:, 0]

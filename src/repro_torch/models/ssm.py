@@ -23,6 +23,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models.common import (
+    NO_ROWS,
     ParamSpec,
     _pad_seq,
     acc_dtype,
@@ -217,25 +218,31 @@ def mamba_block_full(p, x: torch.Tensor, cfg: ModelConfig,
     return y @ p["out_proj"].to(dt_), h_final
 
 
+# the weights whose products a decode step may take with the token's rows
+# spread over their columns (``DecodeRows.times``)
+MAMBA_ROWS_FIRST = ("wz", "wx", "wB", "wC", "wdt")
+
+
 def mamba_block_decode(p, x: torch.Tensor, cfg: ModelConfig,
                        conv_state: torch.Tensor, ssm_state: torch.Tensor,
-                       ctx: ShardingCtx = NULL_CTX):
+                       ctx: ShardingCtx = NULL_CTX, rows=NO_ROWS):
     """Single-token Mamba2 step.  x: (B, 1, d).
 
     conv_state: (B, k-1, dI) trailing inputs; ssm_state: (B, nh, hp, N)
-    float32.  Returns (out (B, 1, d), conv_state', ssm_state').
+    float32.  Returns (out (B, 1, d), conv_state', ssm_state').  With a
+    decode step's ``rows`` (``DecodeRows``), the input products take the
+    normed rows spread over their columns, as the weights of
+    ``MAMBA_ROWS_FIRST`` lie.
     """
     dI = cfg.mamba_expand * cfg.d_model
     nh = dI // cfg.mamba_headdim
     dt_, at = x.dtype, acc_dtype(x.dtype)
     h = rms_norm(x, p["m_norm"], cfg.norm_eps)[:, 0]  # (B, d)
-    z = h @ p["wz"].to(dt_)
-    xin = h @ p["wx"].to(dt_)
+    z, xin, Bm, Cm, dtr = rows.times(
+        rows.spread(h), *(p[n].to(dt_) for n in MAMBA_ROWS_FIRST))
     window = torch.cat([conv_state, xin[:, None, :]], dim=1)  # (B, k, dI)
     xc = F.silu(torch.einsum("bkf,kf->bf", window, p["conv_w"].to(dt_)))
-    Bm = h @ p["wB"].to(dt_)
-    Cm = h @ p["wC"].to(dt_)
-    dt = softplus((h @ p["wdt"].to(dt_)).to(at) + p["dt_bias"].to(at))
+    dt = softplus(dtr.to(at) + p["dt_bias"].to(at))
     A = -torch.exp(p["A_log"].to(at))
     xh = xc.reshape(-1, nh, cfg.mamba_headdim)
     y, ssm_state = ssd_decode_step(xh, dt, A, Bm, Cm, ssm_state)

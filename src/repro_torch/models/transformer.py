@@ -28,28 +28,37 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Partial
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (
     FlatParamsLM,
+    LocalKV,
     ParamSpec,
     Params,
     TensorSpec,
     apply_rope,
     blockwise_attention,
     cache_update,
+    column_split,
+    cut_columns,
     decode_attention,
     embed_rows,
+    fold_rows,
     new_layers_like,
+    own_part,
     positions_like,
     glu_mlp,
     head_logits,
     next_token_ce,
     remat,
     rms_norm,
+    row_split,
     scalar_in,
+    split_dims,
+    to_shard,
     torch_dtype,
 )
 
@@ -132,29 +141,80 @@ class DecoderLM(FlatParamsLM):
     def _layer(self, params: Params, i: int) -> Params:
         return {n: params[n][i] for n in self._layer_names()}
 
-    def _attn_proj_qkv(self, p, h, pos, ctx):
+    def _attn_proj_qkv(self, p, h, pos, ctx, local_kv=False,
+                       decode=False):
+        """(q, k, v).  With ``local_kv`` (the loss path, which needs K / V
+        only in attention), KV heads that every "model" rank holds whole
+        come as a ``LocalKV``: each rank makes only the KV heads its own
+        query heads read (GSPMD splits that work too); in a ``decode``
+        step each rank makes its block of their columns (``cut_columns``)."""
         cfg = self.cfg
         dt = h.dtype
         B, S, d = h.shape
 
         def proj(w):
-            return (h @ w.to(dt).reshape(d, -1)).reshape(B, S, *w.shape[1:])
+            w2 = w.to(dt).reshape(d, -1)
+            out = cut_columns(h, w2, ctx) if decode else h @ w2
+            return out.reshape(B, S, *w.shape[1:])
 
-        q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+        # heads the "model" axis does not divide: each rank its own block
+        split = split_dims(ctx, "act_heads", h, p["wq"])
+        q = column_split(h, p["wq"].to(dt), split, p["bq"].to(dt)
+                         if cfg.qkv_bias else None) if split else None
+        if q is None:
+            q = proj(p["wq"])
+            if cfg.qkv_bias:
+                q = q + p["bq"].to(dt)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        q = ctx.constrain(q, ("act_batch", None, "act_heads", None))
+        kv_dims = split_dims(ctx, "act_heads", h, p["wk"]) \
+            if local_kv and not ctx.seq_fold else ()
+        if kv_dims and all(q.placements[i].is_shard(2) for i in kv_dims):
+            kv = LocalKV(cfg.num_kv_heads, lambda lo, hi: self._kv_block(
+                p, h, pos, kv_dims, lo, hi))
+            return q, kv, kv
+        k, v = proj(p["wk"]), proj(p["wv"])
         if cfg.qkv_bias:
-            q = q + p["bq"].to(dt)
             k = k + p["bk"].to(dt)
             v = v + p["bv"].to(dt)
-        q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-        q = ctx.constrain(q, ("act_batch", None, "act_heads", None))
         k = ctx.constrain(k, ("act_batch", None, "cache_heads", None))
         v = ctx.constrain(v, ("act_batch", None, "cache_heads", None))
         return q, k, v
 
-    def _attn_out(self, p, attn, dt):
+    def _kv_block(self, p, h, pos, dims, lo, hi):
+        """This rank's keys and values of KV heads ``[lo, hi)`` for its own
+        rows, as local tensors: its rows of ``h`` (replicated over the mesh
+        dimensions ``dims``, so each rank's gradient is a part of a pending
+        sum) times its block of the replicated weights."""
+        cfg = self.cfg
+        dt = h.dtype
+        roles = [None if i in dims else "batch" if pl.is_shard(0) else None
+                 for i, pl in enumerate(h.placements)]
+        hl = h.to_local(grad_placements=[
+            Partial() if i in dims else pl
+            for i, pl in enumerate(h.placements)])
+        pl = to_shard(pos, h.device_mesh, roles, {"batch": 0})
+
+        def block(w, b):
+            wl = own_part(w.to(dt), 1, lo, hi - lo)
+            out = (hl @ wl.reshape(wl.shape[0], -1)).reshape(
+                *hl.shape[:2], hi - lo, cfg.head_dim)
+            return out if b is None else out + own_part(b.to(dt), 0, lo,
+                                                        hi - lo)
+
+        bias = cfg.qkv_bias
+        k = block(p["wk"], p["bk"] if bias else None)
+        v = block(p["wv"], p["bv"] if bias else None)
+        return apply_rope(k, pl, cfg.rope_theta), v
+
+    def _attn_out(self, p, attn, dt, ctx=NULL_CTX):
         B, S = attn.shape[:2]
         wo = p["wo"].to(dt)
+        split = split_dims(ctx, "act_heads", wo)
+        out = row_split(attn, wo, split) if split else None
+        if out is not None:  # each rank's own heads: a pending sum
+            return out
         return attn.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
     def _mlp(self, p, h, ctx):
@@ -165,27 +225,29 @@ class DecoderLM(FlatParamsLM):
         return glu_mlp(h, p["w_gate"], p["w_up"], p["w_down"], cfg.mlp_act,
                        ctx), None
 
-    def _layer_full(self, p, x, pos, ctx):
-        """Full-sequence layer (train / prefill). Returns (x, (k, v), aux)."""
+    def _layer_full(self, p, x, pos, ctx, want_kv=True):
+        """Full-sequence layer (train / prefill). Returns (x, (k, v), aux),
+        (k, v) None without ``want_kv``."""
         cfg = self.cfg
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        q, k, v = self._attn_proj_qkv(p, h, pos, ctx)
+        q, k, v = self._attn_proj_qkv(p, h, pos, ctx, local_kv=not want_kv)
         attn = blockwise_attention(
             q, k, v, pos, pos,
             causal=True, window=cfg.window, chunk=cfg.attn_chunk,
+            fold=ctx.seq_fold,
         )
-        x = x + self._attn_out(p, attn, x.dtype)
+        x = x + self._attn_out(p, attn, x.dtype, ctx)
         x = ctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
         h2 = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
         mlp_out, aux = self._mlp(p, h2, ctx)
         x = ctx.constrain(x + mlp_out, ("act_batch", "act_seq", "act_embed"))
-        return x, (k, v), aux
+        return x, (k, v) if want_kv else None, aux
 
     def _layer_loss(self, p, x, pos, ctx):
         """``_layer_full`` without the K / V, on the weights' FSDP shards
         gathered: (x, aux)."""
         p = ctx.gather_fsdp(p, x.dtype, self.KEEP)
-        x, _, aux = self._layer_full(p, x, pos, ctx)
+        x, _, aux = self._layer_full(p, x, pos, ctx, want_kv=False)
         return x, aux
 
     def _layer_decode(self, p, x, cache_k, cache_v, cache_pos, t, ctx):
@@ -193,7 +255,7 @@ class DecoderLM(FlatParamsLM):
         cfg = self.cfg
         h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
         pos_q = t[:, None]  # (B,1)
-        q, k, v = self._attn_proj_qkv(p, h, pos_q, ctx)
+        q, k, v = self._attn_proj_qkv(p, h, pos_q, ctx, decode=True)
         ck, cv, cp = cache_update(cache_k, cache_v, cache_pos, k, v, t)
         ck = ctx.constrain(ck, ("cache_batch", "cache_seq", "cache_heads", None))
         cv = ctx.constrain(cv, ("cache_batch", "cache_seq", "cache_heads", None))
@@ -226,7 +288,10 @@ class DecoderLM(FlatParamsLM):
             patches = torch.as_tensor(batch["patches"], device=x.device)
             pe = rms_norm(patches.to(dt), params["patch_norm"], cfg.norm_eps)
             pe = pe @ params["patch_proj"].to(dt)
-            x = torch.cat([pe, x], dim=1)
+            # laid out as the token embeds: the projection can leave a sum
+            # pending over "model", which every later norm would settle
+            x = ctx.constrain(torch.cat([pe, x], dim=1),
+                              ("act_batch", "act_seq", "act_embed"))
             if labels is not None:
                 pad = torch.full(pe.shape[:2], -1, dtype=labels.dtype,
                                  device=x.device)
@@ -259,8 +324,10 @@ class DecoderLM(FlatParamsLM):
             if not collect_kv:  # the loss path: remat, as ``repro``
                 x, aux_l = remat(self.cfg, self._layer_loss, p_l, x, pos,
                                  ctx)
-            else:
-                x, (k, v), aux_l = self._layer_full(p_l, x, pos, ctx)
+            else:  # the FSDP shards gathered as the loss path's are:
+                # each rank's own heads and MLP columns, not all of them
+                x, (k, v), aux_l = self._layer_full(
+                    ctx.gather_fsdp(p_l, x.dtype, self.KEEP), x, pos, ctx)
             if aux_l is not None:
                 aux = aux_l if aux is None else aux + aux_l
             if collect_kv:
@@ -280,12 +347,17 @@ class DecoderLM(FlatParamsLM):
         returns (loss, {"ce", "aux"})."""
         cfg = self.cfg
         x, labels = self._assemble_input(params, batch, ctx)
-        x, _, aux = self._stack_full(params, x,
-                                     self._positions(x), ctx,
-                                     collect_kv=False)
+        pos = self._positions(x)
+        # a dropping MoE forms its dispatch groups from the rows: folded,
+        # its tokens would fall into other groups and other ones be dropped
+        if not (cfg.moe and cfg.moe.impl == "dropping"):
+            ctx = ctx.sequence_fold(x)
+        if ctx.seq_fold:  # rows replicated over a row axis: fold them
+            x, pos = (fold_rows(t, ctx.seq_fold) for t in (x, pos))
+        x, _, aux = self._stack_full(params, x, pos, ctx, collect_kv=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x, ctx)
-        ce = next_token_ce(logits, labels)
+        ce = next_token_ce(logits, labels, ctx.seq_fold)
         if aux is None:
             return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
         return ce + cfg.moe.router_aux_coef * aux, {"ce": ce, "aux": aux}

@@ -441,11 +441,14 @@ def decode_lookup_head_rank(rank, world, cases):
 class _Ops:
     """A dispatch mode below DTensor that records each local op's name,
     output shapes and dtypes and input shapes on this rank (DTensor's ops
-    pass on to DTensor, whose local ops come back here)."""
+    pass on to DTensor, whose local ops come back here); with
+    ``local_only``, not the ops DTensor's sharding propagation runs on fake
+    or meta tensors at the global shape."""
 
     @staticmethod
-    def mode():
+    def mode(local_only=False):
         import torch
+        from torch._subclasses.fake_tensor import FakeTensor
         from torch.distributed.tensor import DTensor
         from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -458,6 +461,10 @@ class _Ops:
                 if any(issubclass(t, DTensor) for t in types):
                     return NotImplemented
                 out = func(*args, **(kwargs or {}))
+                if local_only and any(
+                        isinstance(a, FakeTensor) or a.device.type == "meta"
+                        for a in args if isinstance(a, torch.Tensor)):
+                    return out
                 outs = out if isinstance(out, (tuple, list)) else (out,)
                 self.seen.append((
                     func.name(),
@@ -498,6 +505,46 @@ def whole_vocab_ce_rank(rank, world, cases, chunk_bytes):
             loss.backward()
         out[name] = (float(loss.detach().full_tensor()),
                      lg.grad.full_tensor().float().numpy(),
+                     [o for _, outs, _ in rec.seen for o in outs])
+    return out
+
+
+def rms_norm_rank(rank, world, cases, chunk_bytes):
+    """``rms_norm`` without a gradient on a (B, S, d) DTensor sharded over
+    its rows on "data" of a ("data", "model") mesh of ``(world // 2, 2)``,
+    replicated over "model" or (``pending``) a pending sum over it (the
+    first "model" rank holds the rows, the other zeros), with
+    ``NORM_CHUNK_BYTES`` at ``chunk_bytes``.  ``cases`` maps a name to (x
+    float32, w float32, dtype name, pending); returns per case the whole
+    output as float64 and every op's output shapes and dtypes on this
+    rank."""
+    import torch
+    from torch.distributed.tensor import (
+        DTensor, Partial, Replicate, Shard, distribute_tensor,
+    )
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common
+
+    common.NORM_CHUNK_BYTES = chunk_bytes
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for name, (x, w, dtype, pending) in cases.items():
+        xt = torch.from_numpy(x).to(getattr(torch, dtype))
+        if pending:
+            piece = distribute_tensor(xt, mesh, [Shard(0), Replicate()])
+            local = piece.to_local()
+            if mesh.get_coordinate()[1]:
+                local = torch.zeros_like(local)
+            xd = DTensor.from_local(local, mesh, [Shard(0), Partial()],
+                                    run_check=False)
+        else:
+            xd = distribute_tensor(xt, mesh, [Shard(0), Replicate()])
+        with torch.no_grad(), implicit_replication(), \
+                _Ops.mode(local_only=True) as rec:
+            y = common.rms_norm(xd, torch.from_numpy(w), 1e-6)
+        out[name] = (y.full_tensor().double().numpy(),
                      [o for _, outs, _ in rec.seen for o in outs])
     return out
 
@@ -583,4 +630,105 @@ def held_remat_rank(rank, world, arch, rows, seq):
                        zip(names, grads)},
                       [[(ins[0], outs[0][0]) for op, outs, ins in rec.seen
                         if "all_gather" in op] for rec in (fwd, bwd)])
+    return out
+
+
+def split_work_rank(rank, world, cases):
+    """The loss and its gradients of a reduced config in float64, its
+    parameters sharded as the train profile shards them over a ("data",
+    "model") mesh and its batch a DTensor replicated over it, as a train
+    cell's microbatch whose rows do not divide "data" lies (``cases``
+    maps a name to (arch, config overrides, rows, seq, mesh shape)).
+    Returns per case the loss, every parameter's whole gradient and, for
+    each matrix product of the loss and its backward on this rank, its
+    operands' shapes."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import ShardingCtx, make_profile
+    from repro_torch.launch.cells import param_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model, make_inputs
+
+    profile = make_profile("train")
+    out = {}
+    for name, (arch, over, rows, seq, shape) in cases.items():
+        cfg = get_reduced(arch).with_(param_dtype="float64",
+                                      compute_dtype="float64", **over)
+        mesh = make_host_mesh(tuple(shape), ("data", "model"), device="cpu")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        batch = make_inputs(cfg, ShapeSpec("t", "train", seq, rows), seed=0,
+                            device="cpu")
+        shard = param_shardings(model, mesh, profile, [])
+        dparams = {n: distribute_tensor(p, *shard[n]).requires_grad_(True)
+                   for n, p in params.items()}
+        dbatch = {k: distribute_tensor(v, mesh, [Replicate(), Replicate()])
+                  for k, v in batch.items()}
+        names = sorted(dparams)
+        with implicit_replication(), _Ops.mode(local_only=True) as rec:
+            loss, _ = model.loss(dparams, dbatch, ShardingCtx(mesh, profile))
+            grads = torch.autograd.grad(loss, [dparams[n] for n in names])
+        out[name] = (float(loss.detach().full_tensor()),
+                     {n: g.full_tensor().numpy()
+                      for n, g in zip(names, grads)},
+                     [ins[:2] for op, _, ins in rec.seen
+                      if op in ("aten::mm", "aten::bmm")])
+    return out
+
+
+def decode_model_rank(rank, world, cases):
+    """One decode step of a reduced config in float64 on a ("data",
+    "model") mesh of ``(world // 2, 2)``, its parameters, tokens, cache and
+    positions laid out as a decode cell lays them out (the decode
+    profile); ``cases`` maps a name to (arch, rows, cache length).
+    Returns per case the logits and every cache entry gathered whole."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import ShardingCtx, make_profile
+    from repro_torch.launch.cells import (
+        BATCH_AXES, CACHE_AXES, _tree_shardings, param_shardings,
+    )
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model, make_cache, make_inputs
+    from repro_torch.distributed.sharding import named_sharding
+
+    mesh = make_host_mesh((world // 2, 2), ("data", "model"), device="cpu")
+    profile = make_profile("decode")
+    out = {}
+    for name, (arch, rows, seq) in cases.items():
+        cfg = get_reduced(arch).with_(param_dtype="float64",
+                                      compute_dtype="float64")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        shape = ShapeSpec("d", "decode", seq, rows)
+        tokens = make_inputs(cfg, shape, seed=1, device="cpu")["tokens"]
+        cache = make_cache(cfg, rows, seq, filled=seq // 2, device="cpu")
+        g = torch.Generator().manual_seed(2)
+        cache = {k: v if v.dtype == torch.int32 else
+                 torch.randn(v.shape, generator=g, dtype=v.dtype)
+                 for k, v in cache.items()}
+        t = torch.full((rows,), seq // 2, dtype=torch.int32)
+        ps = param_shardings(model, mesh, profile, [])
+        cs = _tree_shardings({k: v for k, v in cache.items()}, CACHE_AXES,
+                             mesh, profile, [], "cache")
+        bs = _tree_shardings({"tokens": tokens}, BATCH_AXES, mesh, profile,
+                             [], "batch")
+        with implicit_replication(), torch.no_grad():
+            logits, new = model.decode(
+                {n: distribute_tensor(p, *ps[n]) for n, p in params.items()},
+                distribute_tensor(tokens, *bs["tokens"]),
+                {k: distribute_tensor(v, *cs[k]) for k, v in cache.items()},
+                distribute_tensor(t, *named_sharding(
+                    mesh, ("cache_batch",), t.shape, profile)),
+                ShardingCtx(mesh, profile))
+        out[name] = (logits.full_tensor().numpy(),
+                     {k: v.full_tensor().numpy() for k, v in new.items()})
     return out

@@ -229,8 +229,7 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch import gate_cell
 from repro_torch.launch.cells import build_cell, lower_cell
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.roofline import roofline_row
-from repro_torch.models.model import model_flops_per_step
+from repro_torch.launch.roofline import product_flops, roofline_row
 mesh = make_host_mesh((2, 2), device="cpu")
 cfg = get_reduced("llama3-8b")
 gs = gate_cell.GATE_SHAPES["search_1b"]
@@ -246,7 +245,7 @@ for name in %r:
         kind = name.split("_")[0]
         shape = ShapeSpec(name, kind, 128, 8)
         cell = build_cell(cfg, shape, mesh, num_microbatches=2)
-        mf = model_flops_per_step(cfg, shape)
+        mf = product_flops(cfg, shape)
     tr = lower_cell(cell)
     mem = tr.memory_analysis()
     rec = {"arch": "x", "shape": name, "mesh": "2x2", "n_devices": 4,
@@ -286,27 +285,11 @@ def test_small_cells_hold_repros_argument_bytes(small_cells, name):
           a["collectives"], "fallbacks", b["fallbacks"])
     assert b["argument_size_in_bytes"] == a["argument_size_in_bytes"]
     if name == "prefill_32k":
-        # prefill computes logits at the last position only, while the
-        # analytic count charges the LM head (2·d·V a token) at every one:
-        # in both packages the traced FLOPs fall short of it by that head
-        from repro_torch.configs import get_reduced
-
-        cfg = get_reduced("llama3-8b")
-        head = 2.0 * cfg.d_model * cfg.vocab_size * 8 * 127 / 4
-        # the attention's products run on each rank's heads (the queries'
-        # shards over "model"), where ``repro``'s compile runs every head on
-        # every "model" rank: the port's FLOPs are ``repro``'s less half of
-        # them (2 layers x QK^T and PV x 2·(B/2)·(H/2)·S²·hd)
-        attn = cfg.num_layers * 2 * 2.0 * (8 // 2) * (cfg.num_heads // 2) \
-            * 128 * 128 * cfg.head_dim
-        assert b["dot_flops"] == a["dot_flops"] - attn
-        # the analytic count also charges the embedding lookup (2·V·d a
-        # token), which no product computes
-        emb = 2.0 * cfg.d_model * cfg.vocab_size * 8 * 128 / 4
-        assert b["dot_flops"] >= b["dot_flops"] * b["useful_ratio"] - head \
-            - emb
-    else:
-        assert 0 < b["useful_ratio"] <= 1.0
+        # each layer's FSDP shards gathered at use, as the loss path
+        # gathers them (each rank's own heads and MLP columns): the port's
+        # products are ``repro``'s, FLOP for FLOP
+        assert b["dot_flops"] == a["dot_flops"]
+    assert 0 < b["useful_ratio"] <= 1.0
 
 
 # ------------------------------------ the sharded train steps on 4x4
@@ -319,7 +302,7 @@ from repro.launch.hlo_analysis import analyze_compiled
 from repro.launch.mesh import make_host_mesh
 c = json.loads(sys.argv[1])
 mesh = make_host_mesh(tuple(c["mesh"]))
-cfg = get_reduced(c["arch"])
+cfg = get_reduced(c["arch"]).with_(**c.get("config", {}))
 if c["vocab_size"]:
     cfg = cfg.with_(vocab_size=c["vocab_size"])
 kind = c.get("kind", "train")

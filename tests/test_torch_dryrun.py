@@ -275,6 +275,45 @@ def test_roofline_row_prices_the_h100():
     assert row["useful_ratio"] == 3.2e17 / 256 / 1.7e15
 
 
+def _cells():
+    from repro_torch.configs import ARCH_NAMES, SHAPES, get_config
+    from repro_torch.configs import shape_applicable
+
+    return [(a, n) for a in ARCH_NAMES for n in SHAPES
+            if shape_applicable(get_config(a), SHAPES[n])[0]]
+
+
+@pytest.mark.parametrize("arch,shape", _cells())
+def test_product_flops_leaves_out_what_no_product_multiplies(arch, shape):
+    """``product_flops`` is ``repro``'s analytic count less what it charges
+    for parameters no product multiplies: positive, at most that count,
+    and for a decoder with an untied table exactly 2·(N less its vectors
+    and its lookup table)·B plus the attention term to decode, with the
+    LM head at one position a row to prefill."""
+    import math
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.roofline import product_flops
+    from repro_torch.models.model import build_model, model_flops_per_step
+
+    cfg, sh = get_config(arch), SHAPES[shape]
+    got, full = product_flops(cfg, sh), model_flops_per_step(cfg, sh)
+    assert 0 < got <= full
+    if cfg.family != "dense" or cfg.tie_embeddings:
+        return
+    table = build_model(cfg).param_table()
+    vec = sum(math.prod(t.shape) for t in table.values()
+              if "embed" not in t.axes)
+    lookup = math.prod(table["tok_embed"].shape)
+    B, S = sh.global_batch, sh.seq_len
+    if sh.kind == "decode":
+        assert got == full - 2.0 * (vec + lookup) * B
+    elif sh.kind == "prefill":
+        head = math.prod(table["lm_head"].shape)
+        assert got == full - 2.0 * (vec + lookup) * B * S \
+            - 2.0 * head * B * (S - 1)
+
+
 def test_fill_experiments_inlines_the_table(tmp_path):
     from repro_torch.launch import fill_experiments
 

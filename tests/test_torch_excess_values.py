@@ -8,6 +8,10 @@ value (``repro_torch.models.common``, ``rwkv``, ``ssm``):
   ranks, logits sharded over their rows and whole on the vocabulary, no op
   makes a float32 tensor of the vocabulary's width with more rows than one
   chunk (the parent made the whole float32 copy, and its exponentials);
+* ``rms_norm`` without a gradient on a DTensor, in runs of positions of
+  one length (``norm_runs``), is the whole-input formula bit for bit on 4
+  gloo ranks, and so is ``norm_runs`` on CPU tensors and (marked
+  ``cuda``) on the card;
 * ``wkv6_step``, ``ssd_decode_step`` and ``decode_attention`` on a decode
   cell's DTensors (4 gloo ranks) run on each rank's shards: the recurrent
   states never move (the parent gathered them, as it gathered the
@@ -15,12 +19,13 @@ value (``repro_torch.models.common``, ``rwkv``, ``ssm``):
   where each rank holds whole rows of the cache's sequence, within 1e-12
   in float64 where the sequence is split (``repro``'s max / sum
   all-reduce);
-* ``remat`` holds an input whose rows fell back to replicated over "data"
-  as its sequence shard (``_held_as_shards``): on 4 gloo ranks the reduced
+* ``remat`` of a decoder whose rows fell back to replicated over "data":
+  the rows folded into the sequence (``fold_rows``), so the checkpoint
+  holds each rank's own positions: on 4 gloo ranks the reduced
   mistral-large-123b's loss and every gradient equal the run without
-  remat bit for bit, the forward gathers no layer input, and the backward
-  gathers each layer's input once from its shard (the parent held them
-  whole and gathered none).
+  remat bit for bit, and neither the forward nor the backward gathers a
+  layer input (held whole over "data", each input was gathered back from
+  its sequence shard in the backward).
 """
 import numpy as np
 import pytest
@@ -30,8 +35,10 @@ from repro_torch.models import common
 from repro_torch.models.rwkv import wkv6_step
 from repro_torch.models.ssm import ssd_decode_step
 from tests._torch_ranks import (
+    decode_model_rank,
     decode_step_rank,
     held_remat_rank,
+    rms_norm_rank,
     run_ranks,
     whole_vocab_ce_rank,
 )
@@ -83,6 +90,109 @@ def test_whole_vocab_ce_is_the_formula_bit_for_bit(monkeypatch, dtype,
         want.backward()
         assert got.dtype == want.dtype and torch.equal(got, want)
         assert a.grad.dtype == dt and torch.equal(a.grad, b.grad)
+
+
+def _rms_formula(x, w, eps):
+    """``rms_norm`` as it was: the whole input cast to the accumulation
+    dtype at once."""
+    at = common.acc_dtype(x.dtype)
+    xf = x.to(at)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w.to(at))).to(x.dtype)
+
+
+@pytest.mark.parametrize("shape", [(3, 77, 96), (2, 5, 7, 96), (300, 96)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32",
+                                   "float64"])
+def test_rms_norm_in_runs_of_positions_is_the_formula(monkeypatch, dtype,
+                                                      shape):
+    """``norm_runs`` at every run length that divides the positions (77:
+    1, 7, 11; 7: 1; 300: 1 … 150) equals the whole-input formula bit for
+    bit; ``rms_norm`` on a plain tensor past ``NORM_CHUNK_BYTES`` (here 5
+    rows of the accumulation dtype) is that formula, without a gradient
+    and with one (output and gradient)."""
+    monkeypatch.setattr(common, "NORM_CHUNK_BYTES", 96 * 8 * 5)
+    rng = np.random.default_rng(2)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(3.0 * rng.standard_normal(shape)).to(dt)
+    w = torch.from_numpy(0.1 * rng.standard_normal(96)).float()
+    want = _rms_formula(x, w, 1e-6)
+    S = shape[-2]
+    for step in (n for n in range(1, S) if S % n == 0):
+        got = common.norm_runs(x, w, 1e-6, step)
+        assert got.dtype == dt and torch.equal(got, want), step
+    with torch.no_grad():
+        assert torch.equal(common.rms_norm(x, w, 1e-6), want)
+    xa, xb = (x.clone().requires_grad_(True) for _ in range(2))
+    ga, gb = common.rms_norm(xa, w, 1e-6), _rms_formula(xb, w, 1e-6)
+    ga.sum().backward()
+    gb.sum().backward()
+    assert torch.equal(ga, gb) and torch.equal(xa.grad, xb.grad)
+
+
+NORM_D = 96
+NORM_RUN_ROWS = 5  # NORM_CHUNK_BYTES on the ranks: 5 float32 rows of d
+
+
+@pytest.fixture(scope="module")
+def rms_norm_ranks(tmp_path_factory):
+    rng = np.random.default_rng(9)
+    cases = {}
+    for name, (B, S, dtype, pending) in {
+            "bf16": (2, 21, "bfloat16", False),
+            "f32": (2, 35, "float32", False),
+            "bf16_pending": (4, 20, "bfloat16", True)}.items():
+        x = (3.0 * rng.standard_normal((B, S, NORM_D))).astype(np.float32)
+        w = (0.1 * rng.standard_normal(NORM_D)).astype(np.float32)
+        cases[name] = (x, w, dtype, pending)
+    return cases, run_ranks(rms_norm_rank, 4,
+                            tmp_path_factory.mktemp("rms_norm"), cases,
+                            NORM_RUN_ROWS * NORM_D * 4)
+
+
+@pytest.mark.parametrize("case", ["bf16", "f32", "bf16_pending"])
+def test_rms_norm_on_row_sharded_ranks_is_the_formula(rms_norm_ranks, case):
+    """On 4 gloo ranks, a DTensor sharded over its rows on "data" (each
+    rank's piece 1 row of 21 or 35 positions or 2 rows of 20, whole over
+    "model" or a pending sum over it), ``NORM_CHUNK_BYTES`` at 5 float32
+    positions of one row: ``rms_norm`` equals the whole-input formula bit
+    for bit, in runs of 3, 5 and 2 positions.  From a bf16 input no op
+    makes a float32 tensor of more than 5 positions (the formula casts all
+    21 or 20)."""
+    cases, ranks = rms_norm_ranks
+    x, w, dtype, _ = cases[case]
+    want = _rms_formula(torch.from_numpy(x).to(getattr(torch, dtype)),
+                        torch.from_numpy(w), 1e-6).double().numpy()
+    for out in ranks:
+        got, outs = out[case]
+        np.testing.assert_array_equal(got, want)
+        if dtype == "bfloat16":
+            wide = [s for s, dt in outs if dt == "torch.float32"
+                    and len(s) == 3 and s[-1] == NORM_D]
+            assert wide and max(s[1] for s in wide) <= NORM_RUN_ROWS, wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,step", [(2, 8192, 6144, 2048),
+                                        (1, 8192, 12288, 1024),
+                                        (2, 4096, 2048, 512),
+                                        (2, 64, 12288, 8)])
+def test_norm_runs_on_the_card_are_the_formula(B, S, d, step):
+    """On the card, whose reduction picks its thread layout from the
+    number of rows it is given: bf16 (B, S, d) inputs normed in runs of
+    ``step`` positions equal the whole-input formula bit for bit, at the
+    run lengths a rank's piece of a prefill gets (2,048 positions of 2
+    rows of 6,144 under ``NORM_CHUNK_BYTES``) and at a short one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(B * S + d)
+    x = (3.0 * torch.randn(B, S, d, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    w = 0.1 * torch.randn(d, generator=g, device="cuda")
+    with torch.no_grad():
+        got = common.norm_runs(x, w, 1e-6, step)
+        want = _rms_formula(x, w, 1e-6)
+    assert torch.equal(got, want)
 
 
 CE_V = 37  # the vocabulary: odd, so no mesh dimension divides it
@@ -225,18 +335,71 @@ def test_decode_step_moves_no_state_and_no_scores(decode_ranks, case):
             assert new == old
 
 
+# ------------------------------------------- a decode step on the mesh
+MODEL_DECODE = {"rwkv6": ("rwkv6-1.6b", 8, 16),
+                "zamba2": ("zamba2-1.2b", 8, 16),
+                "llama3": ("llama3-8b", 8, 16),
+                "seamless": ("seamless-m4t-medium", 8, 16)}
+
+
+@pytest.fixture(scope="module")
+def model_decode(tmp_path_factory):
+    return run_ranks(decode_model_rank, 4,
+                     tmp_path_factory.mktemp("model_decode"), MODEL_DECODE)
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_DECODE))
+def test_decode_step_with_spread_rows_is_the_plain_call(model_decode, case):
+    """A whole decode step of the reduced rwkv6-1.6b and zamba2-1.2b (its
+    input products take the token's rows spread over the weights' rows,
+    ``DecodeRows.spread``), llama3-8b and seamless-m4t-medium (each rank
+    makes its block of the KV projections' columns, ``cut_columns``) on 4
+    gloo ranks, float64, laid out as the decode cells lay them out, gives
+    one process's logits and every new cache entry within 1e-12."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models.model import build_model, make_cache, make_inputs
+
+    arch, rows, seq = MODEL_DECODE[case]
+    cfg = get_reduced(arch).with_(param_dtype="float64",
+                                  compute_dtype="float64")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = make_inputs(cfg, ShapeSpec("d", "decode", seq, rows), seed=1,
+                         device="cpu")["tokens"]
+    cache = make_cache(cfg, rows, seq, filled=seq // 2, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    cache = {k: v if v.dtype == torch.int32 else
+             torch.randn(v.shape, generator=g, dtype=v.dtype)
+             for k, v in cache.items()}
+    t = torch.full((rows,), seq // 2, dtype=torch.int32)
+    with torch.no_grad():
+        logits, new = model.decode(params, tokens, cache, t)
+    for out in model_decode:
+        got_logits, got = out[case]
+        np.testing.assert_allclose(got_logits, logits.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+        assert sorted(got) == sorted(new)
+        for k, v in new.items():
+            np.testing.assert_allclose(got[k], v.numpy(), rtol=1e-12,
+                                       atol=1e-12, err_msg=k)
+
+
 # --------------------------------------------------- the held remat
+HELD_ARCH = "mistral-large-123b"
+
+
 @pytest.fixture(scope="module")
 def held_remat(tmp_path_factory):
     # 3 rows do not divide the 2-way "data" axis; 8 positions do
     return run_ranks(held_remat_rank, 4, tmp_path_factory.mktemp("remat"),
-                     "mistral-large-123b", 3, 8)
+                     HELD_ARCH, 3, 8)
 
 
 def test_held_remat_is_plain_remat_bit_for_bit(held_remat):
     """The loss and every parameter's gradient with remat on (the layer
-    inputs held as sequence shards) equal those with remat off, on every
-    rank, bit for bit."""
+    inputs held as each rank's own folded positions) equal those with
+    remat off, on every rank, bit for bit."""
     for out in held_remat:
         loss_on, grads_on, _ = out[True]
         loss_off, grads_off, _ = out[False]
@@ -247,18 +410,19 @@ def test_held_remat_is_plain_remat_bit_for_bit(held_remat):
 
 
 def test_held_remat_gathers_each_layer_input_in_the_backward(held_remat):
-    """With remat on, the forward all-gathers no (3, 8, d) layer input and
-    the backward all-gathers one from its sequence shard a layer (2
-    layers); without remat neither does (the parent's remat held each
-    input whole, and gathered none)."""
+    """With remat on or off, the forward all-gathers no layer input (a
+    (·, ·, d) activation of the 3 × 8 tokens) and the backward one only,
+    whatever the layer count: the embedding's gradient back to its whole
+    rows, where the fold began.  Each rank holds and recomputes its own 3 ×
+    4 positions, and attention gathers only the keys and values.  Held as
+    sequence shards of the whole (3, 8, d) inputs instead, the backward
+    gathered each one back, one a layer (2 layers)."""
     from repro_torch.configs import get_reduced
 
-    cfg = get_reduced("mistral-large-123b")
-    x = 3 * 8 * cfg.d_model
+    d = get_reduced(HELD_ARCH).d_model
     for out in held_remat:
-        (fwd, bwd) = out[True][2]
-        assert not [g for g in fwd if int(np.prod(g[1])) == x]
-        assert len([g for g in bwd if int(np.prod(g[1])) == x
-                    and g[0][1] == 8 // 2]) == cfg.num_layers
-        assert not [g for phase in out[False][2] for g in phase
-                    if int(np.prod(g[1])) == x and g[0][1] == 8 // 2]
+        for remat in (True, False):
+            fwd, bwd = ([g for g in phase if len(g[1]) == 3
+                         and g[1][-1] == d and g[1][0] * g[1][1] >= 3 * 4]
+                        for phase in out[remat][2])
+            assert fwd == [] and len(bwd) == 1, (fwd, bwd)
