@@ -178,7 +178,8 @@ Run from the root of a checkout:
    128 tokens in 2 microbatches (reduced llama3-8b at vocab 16,384,
    zamba2-1.2b, rwkv6-1.6b; mistral-large-123b at 4 rows, whose rows do
    not divide "data"; seamless-m4t-medium at vocab 16,386, which "model"
-   does not divide; qwen2.5-32b at 10 heads over 4): each dry-runs, takes
+   does not divide; qwen2.5-32b at 10 heads over 4; qwen2-moe-a2.7b's
+   dropping dispatch at vocab 16,384): each dry-runs, takes
    at most 1.5x repro's compiled temp and collective bytes a device and
    its ``dot_ratio`` (1.1x; zamba2 1.5x) times its dot FLOPs, and no op
    but a weight's shard holds the whole vocabulary; and the decode steps
@@ -3286,9 +3287,13 @@ DRYRUN_TIMEOUT_S = 300
 # 16,386 (which does not divide the 4-way "model" axis: the head and the
 # cross entropy on each rank's own block of it; its weights hold the whole
 # vocabulary, as ``repro``'s rules lay them out, and no activation does)
-# and the reduced qwen2.5-32b at 10 query and 2 KV heads (10 over the
+# the reduced qwen2.5-32b at 10 query and 2 KV heads (10 over the
 # 4-way "model" axis is production's 40 over 16: each rank its own block
-# of heads); each with ``repro``'s compiled temp bytes, collective bytes
+# of heads) and the reduced qwen2-moe-a2.7b with the dropping dispatch at a
+# vocabulary of 16,384 (each "data" rank sorts, scatters and combines its
+# own group's tokens; the reduced vocabulary, 512, is a group's 256 tokens
+# times their 2 experts, which the whole-vocabulary check would take for
+# it); each with ``repro``'s compiled temp bytes, collective bytes
 # and dot FLOPs a device (XLA on 16 CPU placeholder devices;
 # tests/test_torch_cells.py and tests/test_torch_cells_excess.py compile
 # them and hold them to these numbers) and the most dot FLOPs the port may
@@ -3315,12 +3320,15 @@ TRAIN44_CELLS = {
                         config=dict(num_heads=10, num_kv_heads=2),
                         repro_temp=9_435_768, repro_coll=12_228_528,
                         repro_dot=1_560_281_088, dot_ratio=1.1),
+    "qwen2-moe-a2.7b": dict(vocab_size=16384, moe=dict(impl="dropping"),
+                            repro_temp=27_116_328, repro_coll=47_746_952,
+                            repro_dot=2_319_253_504, dot_ratio=1.1),
 }
 TRAIN44_SHAPE = dict(seq=128, batch=16, micro=2, mesh=(4, 4))
 # the smallest train cells, priced in one process in turn: one
 # interpreter's start and imports fewer beside the other cells'
 # processes on the machine's cores
-TRAIN44_SHARED = ("mistral-large-123b", "qwen2.5-32b")
+TRAIN44_SHARED = ("mistral-large-123b", "qwen2.5-32b", "qwen2-moe-a2.7b")
 # the most temp and collective bytes the port's steps may take beside
 # ``repro``'s
 TRAIN44_TEMP_RATIO = 1.5
@@ -3395,6 +3403,8 @@ def shapes(spec):
     return [s for x in spec or [] for s in shapes(x)]
 for c in jobs:
     cfg = get_reduced(c["arch"]).with_(**c.get("config", {}))
+    if c.get("moe"):
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, **c["moe"]))
     if c["vocab_size"]:
         cfg = cfg.with_(vocab_size=c["vocab_size"])
     V = cfg.vocab_size
@@ -3439,7 +3449,8 @@ def cell44_jobs(train44=TRAIN44_CELLS, decode44=DECODE44_CELLS) -> dict:
     jobs = {f"train44:{a}": {"arch": a, "vocab_size": c["vocab_size"],
                              **TRAIN44_SHAPE,
                              **{k: c[k] for k in ("batch", "micro",
-                                                  "config") if k in c}}
+                                                  "config", "moe")
+                                if k in c}}
             for a, c in train44.items()}
     jobs.update({f"decode44:{a}": {"arch": a, "vocab_size": c["vocab_size"],
                                    **DECODE44_SHAPE}
@@ -3524,8 +3535,9 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
     its fake mesh (``TRAIN44_SHAPE``): it dry-runs, its temp bytes a
     device at most ``TRAIN44_TEMP_RATIO`` times ``repro``'s compiled ones,
     its collective bytes at most ``TRAIN44_COLL_RATIO`` times and its dot
-    FLOPs at most the cell's ``dot_ratio`` times ``repro``'s, and no op has
-    the whole vocabulary as a dimension (in a ``whole_vocab`` cell, whose
+    FLOPs at most the cell's ``dot_ratio`` times ``repro``'s, an MoE
+    cell (``moe`` set) records no op rescued by ``ReplicateFallback``, and
+    no op has the whole vocabulary as a dimension (in a ``whole_vocab`` cell, whose
     vocabulary the mesh does not divide, no op but one shaped as a weight
     of it); and each of ``decode44``'s decode steps (``DECODE44_SHAPE``):
     it dry-runs, makes no op of the whole vocabulary and moves at most its
@@ -3643,7 +3655,9 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
             t44["temp_size_in_bytes"] / c["repro_temp"]
         t44s[arch] = t44
         log(f"phase 16: {arch} train step on a {TRAIN44_SHAPE['mesh']} fake "
-            f"mesh ({c.get('micro', TRAIN44_SHAPE['micro'])} microbatches): "
+            f"mesh ({c.get('micro', TRAIN44_SHAPE['micro'])} microbatches"
+            + "".join(f", moe.{k}={v}" for k, v in c.get("moe", {}).items())
+            + "): "
             f"argument / output / temp bytes a device "
             f"{t44['argument_size_in_bytes']} / "
             f"{t44['output_size_in_bytes']} / {t44['temp_size_in_bytes']} "
@@ -3665,6 +3679,10 @@ def dryrun_phase(torch, np, dev, phase15_step_s: float,
         require(dot <= c["dot_ratio"],
                 f"phase 16: the {arch} train cell's dot FLOPs are {dot:.3f}x "
                 f"repro's (limit {c['dot_ratio']})")
+        if c.get("moe"):  # no op of the dispatch rescued by replication
+            ops = [f for f in t44["fallbacks"] if f.startswith("op/")]
+            require(not ops, f"phase 16: the {arch} train cell replicates "
+                    f"{ops}")
         wv = t44["vocab_act_ops" if c.get("whole_vocab")
                  else "whole_vocab_ops"]
         require(not wv, f"phase 16: the {arch} train cell holds the whole "

@@ -230,11 +230,13 @@ class ShardingCtx:
         # (``sequence_fold``)
         self.seq_fold: Tuple[int, ...] = ()
 
-    def constrain(self, x, logical_axes: Sequence[Optional[str]]):
+    def constrain(self, x, logical_axes: Sequence[Optional[str]],
+                  keep: Sequence[int] = ()):
         """``x`` itself off a mesh.  On one: the rank checked and the spec
         resolved (fallbacks recorded); a DTensor is redistributed to the
-        spec's placements, a plain tensor returned as it is.  The value
-        never changes."""
+        spec's placements, but for the mesh dimensions ``keep``, where its
+        own stay (work split by hand over them), a plain tensor returned
+        as it is.  The value never changes."""
         if self.mesh is None or self.profile is None:
             return x
         if len(logical_axes) != x.ndim:
@@ -246,8 +248,10 @@ class ShardingCtx:
             context="act",
         )
         if isinstance(x, DTensor):
-            return x.redistribute(self.mesh,
-                                  self._keep_split(x, logical_axes, spec))
+            pl = self._keep_split(x, logical_axes, spec)
+            return x.redistribute(self.mesh, [
+                x.placements[i] if i in keep else p
+                for i, p in enumerate(pl)])
         return x
 
     # activation axes whose fallback the models split by hand (uneven

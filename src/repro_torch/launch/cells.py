@@ -606,8 +606,9 @@ class ReplicateFallback(TorchDispatchMode):
                   IndexError)
         try:
             return func(*args, **kwargs)
-        except errors as e:
-            why = str(e).strip().splitlines()[0][:160]
+        except errors as e:  # an empty message: the exception's type
+            why = (str(e).strip().splitlines() or [type(e).__name__])[0]
+            why = why[:160]
         for relax, words in ((_keep_dim0, "replicated but dim 0"),
                              (_replicate, "replicated")):
             r_args, r_kwargs = tree_map(relax, (args, kwargs))

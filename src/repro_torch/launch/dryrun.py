@@ -226,6 +226,8 @@ def main(argv=None):
                     cmd.append("--multi-pod")
                 if args.tag:
                     cmd += ["--tag", args.tag]
+                for kv in getattr(args, "set"):
+                    cmd += ["--set", kv]
                 cmd += ["--device", args.device]
                 cmds.append((f"{arch} {shape} {mesh_name}", cmd))
 

@@ -111,6 +111,7 @@ COLLECTIVES = {
     ("_c10d_functional", "all_gather_into_tensor_coalesced"):
         ("all-gather", "out"),
     ("_c10d_functional", "all_reduce"): ("all-reduce", "out"),
+    ("_c10d_functional", "all_reduce_"): ("all-reduce", "arg0"),
     ("_c10d_functional", "all_reduce_coalesced"): ("all-reduce", "out"),
     ("_c10d_functional", "reduce_scatter_tensor"): ("reduce-scatter", "in"),
     ("_c10d_functional", "reduce_scatter_tensor_coalesced"):

@@ -788,7 +788,13 @@ def _decode_attention_shards(q, k, v, pos_q, pos_k, window):
     where it is split, the softmax over it is ``repro``'s: the scores'
     max all-reduced with MAX, the sum of their exponentials and the
     weighted values with SUM over the sequence's mesh dimensions (each
-    rank's scores stay its own).  None for any other layout."""
+    rank's scores stay its own).  Where the KV heads are whole on every
+    rank and a mesh dimension shards neither the cache nor the queries
+    (a long cell's "model" axis, which its few KV heads do not divide),
+    each of its ranks attends with its own block of query heads, each
+    head with the KV head it reads (work GSPMD splits across the
+    replicated operands), and the output is sharded on its heads over
+    it.  None for any other layout."""
     roles = []
     for p in k.placements:
         if p.is_replicate():
@@ -801,11 +807,25 @@ def _decode_attention_shards(q, k, v, pos_q, pos_k, window):
     Hq, Hkv = q.shape[2], k.shape[2]
     G = Hq // Hkv
     kv = {"batch": 0, "seq": 1, "heads": 2}
-    ql = to_shard(q, mesh, roles, {"batch": 0, "heads": 2})
+    if "heads" not in roles and isinstance(q, DTensor):
+        n = 1  # the innermost free dimensions whose ranks divide the heads
+        for i in reversed(range(mesh.ndim)):
+            if roles[i] is None and q.placements[i].is_replicate() \
+                    and mesh.size(i) > 1 and Hq % (n * mesh.size(i)) == 0:
+                roles[i], n = "qheads", n * mesh.size(i)
+    ql = to_shard(q, mesh, roles, {"batch": 0, "heads": 2, "qheads": 2})
     kl, vl = (to_shard(t, mesh, roles, kv) for t in (k, v))
     pql = to_shard(pos_q, mesh, roles, {"batch": 0})
     pkl = to_shard(pos_k, mesh, roles, {"batch": 0, "seq": 1})
-    if ql.shape[2] != kl.shape[2] * G:
+    if "qheads" in roles:  # each query head beside its own KV head
+        _, off = compute_local_shape_and_global_offset(
+            q.shape, mesh, [Shard(2) if r == "qheads" else Replicate()
+                            for r in roles])
+        kv_of = torch.div(torch.arange(off[2], off[2] + ql.shape[2],
+                                       device=ql.device), G,
+                          rounding_mode="floor")
+        kl, vl = kl[:, :, kv_of], vl[:, :, kv_of]
+    elif ql.shape[2] != kl.shape[2] * G:
         return None
     seq = [i for i, r in enumerate(roles) if r == "seq"]
     if not seq:
@@ -813,8 +833,8 @@ def _decode_attention_shards(q, k, v, pos_q, pos_k, window):
     else:
         out = _decode_attention_split(ql, kl, vl, pql, pkl, window, mesh,
                                       seq)
-    return from_shard(out, mesh, roles, {"batch": 0, "heads": 2},
-                      tuple(q.shape))
+    return from_shard(out, mesh, roles, {"batch": 0, "heads": 2,
+                                         "qheads": 2}, tuple(q.shape))
 
 
 def _decode_attention_split(q, k, v, pos_q, pos_k, window, mesh, seq):

@@ -12,7 +12,12 @@ The tokens are split into the data-parallel groups of the sharding
 context's mesh (``_dp_groups``: the mesh's size over ``act_batch``'s axes),
 each group dispatched on its own with its own capacity, as ``repro`` does;
 off a mesh, or where the batch does not split evenly, that is one group.
-This is the one place where ``ctx`` changes a value.
+This is the one place where ``ctx`` changes a value.  On a DTensor each
+rank sorts, scatters and combines the groups it holds as plain tensors
+(DTensor has no strategy for the sort's ``searchsorted`` or the scatter's
+index put): the groups are the data-parallel shards the rows already lie
+in, so no token moves between ranks, and only the expert products run on
+DTensors, the buffers sharded on their group dimension.
 
 The expert products are plain PyTorch: ``repro`` computes them with
 ``jnp.einsum`` outside any Pallas kernel.  Top-k ties go to the lowest
@@ -28,10 +33,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig, MoESpec
 from repro_torch.distributed.sharding import NULL_CTX, ShardingCtx, mesh_shape
-from repro_torch.models.common import ParamSpec, Params, acc_dtype
+from repro_torch.models.common import (
+    ParamSpec, Params, acc_dtype, from_shard, to_shard,
+)
 
 
 def moe_param_table(cfg: ModelConfig, prefix: str,
@@ -157,23 +165,44 @@ def _scatter_group(xf, ids, E, K, cap, dt):
     # out-of-capacity slots land on one spare row, cut off after
     dest = torch.where(keep, slot, E * cap)
     buf = torch.zeros((E * cap + 1, D), dtype=dt, device=xf.device)
-    buf[dest] = xf[order // K].to(dt)
+    step = _block_rows(T * K)
+    for lo in range(0, T * K, step):
+        buf[dest[lo:lo + step]] = xf[order[lo:lo + step] // K].to(dt)
     src = torch.where(keep, slot, 0)
     return buf[:E * cap].reshape(E, cap, D), keep, src, order
 
 
+# the blocks a scatter or a combine moves a group's rows in: its rows
+# gathered for the buffers, or its weighted slot outputs, never stand
+# whole beside those buffers.  A count, not a size: the dispatch runs the
+# same ops at every length, as the dry run's traced lengths assume
+DISPATCH_BLOCKS = 8
+
+
+def _block_rows(n: int) -> int:
+    return max(-(-n // DISPATCH_BLOCKS), 1)
+
+
 def _combine_group(y_flat, keep, src, order, wts, dt):
     """Each token's K slot outputs, weighted, summed in slot order (no
-    scatter-add, so the sum's order is fixed)."""
+    scatter-add, so the sum's order is fixed): each (token, slot) read
+    from its place in the sorted order, a block of tokens at a time."""
     T, K = wts.shape
-    vals = torch.where(keep[:, None], y_flat[src], 0.0)  # (T*K, D), sorted
-    w_slot = wts.reshape(-1)[order][:, None].to(dt)
-    contrib = torch.empty_like(vals)
-    contrib[order] = vals * w_slot  # back to (token, slot) order
-    contrib = contrib.reshape(T, K, -1)
-    out = contrib[:, 0]
-    for j in range(1, K):
-        out = out + contrib[:, j]
+    D = y_flat.shape[1]
+    at = torch.empty_like(order)
+    at[order] = torch.arange(T * K, device=order.device)
+    at = at.reshape(T, K)
+    kept, rows, w = keep[at], src[at], wts.to(dt)
+    step = _block_rows(T)
+    out = y_flat.new_empty((T, D))
+    for lo in range(0, T, step):
+        blk = None
+        for j in range(K):
+            term = torch.where(kept[lo:lo + step, j, None],
+                               y_flat[rows[lo:lo + step, j]], 0.0) \
+                * w[lo:lo + step, j, None]
+            blk = term if blk is None else blk + term
+        out[lo:lo + step] = blk
     return out
 
 
@@ -192,13 +221,58 @@ def _dp_groups(ctx) -> int:
     return g
 
 
+def _group_layout(ctx, G: int, x):
+    """How the ``G`` dispatch groups lie on the DTensor ``x``'s mesh:
+    (per mesh dimension, "batch" where the groups are split over it and
+    None where each of its ranks holds the same ones; the mesh dimensions
+    over which the capacity rows of one group are split).  The groups
+    take the axes of the ``act_batch`` rule, which ``_dp_groups`` counts;
+    where the rows did not divide into them, every rank holds the one
+    group, and its expert products are split over those axes by capacity
+    row (work XLA splits across a replicated operand: each rank
+    multiplies its own rows, and the weights' gradients come back as
+    each rank's part of a sum)."""
+    rule = ctx.profile.rules.get("act_batch") if ctx.profile else None
+    axes = (rule,) if isinstance(rule, str) else tuple(rule or ())
+    names = x.device_mesh.mesh_dim_names
+    if G > 1:
+        return ["batch" if n in axes else None for n in names], ()
+    return [None] * len(names), tuple(
+        i for i, n in enumerate(names)
+        if n in axes and x.device_mesh.size(i) > 1)
+
+
+def _settle_in_place(y):
+    """The DTensor ``y``'s pending sums settled in its own buffer where no
+    gradient is taken (a prefill's or a decode's expert outputs): a
+    ``redistribute`` holds the partial sums and their total at once, two
+    of the dispatch's largest buffers.  ``y`` as it is anywhere else."""
+    pend = [pl for pl in y.placements if pl.is_partial()] \
+        if isinstance(y, DTensor) and not y.requires_grad else []
+    if not pend or any(pl.reduce_op != "sum" for pl in pend):
+        return y
+    mesh, local = y.device_mesh, y.to_local()
+    ops = torch.ops._c10d_functional
+    for i, pl in enumerate(y.placements):
+        if pl.is_partial():
+            ops.wait_tensor(ops.all_reduce_(local, "sum",
+                                            mesh.get_group(i).group_name))
+    return DTensor.from_local(
+        local, mesh, [Replicate() if pl.is_partial() else pl
+                      for pl in y.placements],
+        run_check=False, shape=y.shape, stride=y.stride())
+
+
 def _dropping_dispatch(x, p, prefix, cfg, top_w, top_ids, ctx):
     """GShard capacity dispatch, group-local: the batch splits into the
     ``_dp_groups(ctx)`` data-parallel groups (one where B does not divide),
     each group's T/G tokens are sorted into their own buffers of capacity
     ``ceil(T/G·K/E·capacity_factor)`` per expert, the slots past it dropped
     (their tokens keep the other experts' and the shared output).  The
-    expert products run once over every group's buffers."""
+    expert products run once over every group's buffers, laid out by
+    expert (E, G, cap, D).  On a DTensor each rank sorts and combines its
+    own groups' tokens (``to_shard``) and the buffers are sharded on G
+    (``from_shard``), as ``repro``'s vmapped dispatch is shard-local."""
     moe = cfg.moe
     E, K = moe.num_experts, moe.experts_per_token
     B, S, D = x.shape
@@ -211,20 +285,45 @@ def _dropping_dispatch(x, p, prefix, cfg, top_w, top_ids, ctx):
     xg = ctx.constrain(x.reshape(G, t_loc, D), ("act_batch", None, None))
     idsg = top_ids.reshape(G, t_loc, K)
     wtsg = top_w.reshape(G, t_loc, K)
-    groups = [_scatter_group(xg[g], idsg[g], E, K, cap, dt) for g in range(G)]
-    buf = ctx.constrain(torch.stack([gr[0] for gr in groups]),
-                        ("act_batch", None, None, None))  # (G, E, cap, D)
+    split = ()
+    if isinstance(xg, DTensor):  # this rank's groups, as plain tensors
+        mesh, dims = xg.device_mesh, {"batch": 0}
+        roles, split = _group_layout(ctx, G, xg)
+        xg, idsg, wtsg = (to_shard(t, mesh, roles, dims)
+                          for t in (xg, idsg, wtsg))
+    groups = [_scatter_group(xg[g], idsg[g], E, K, cap, dt)
+              for g in range(xg.shape[0])]
+    # the buffers by expert, every group's beside the others' (E, G, cap,
+    # D); one group's is its scatter buffer itself
+    buf = torch.stack([gr[0] for gr in groups], dim=1) if len(groups) > 1 \
+        else groups[0][0][:, None]
+    groups = [gr[1:] for gr in groups]
+    if isinstance(x, DTensor):
+        buf = from_shard(buf, mesh, roles, {"batch": 1}, (E, G, cap, D))
+        buf = buf.redistribute(mesh, [Shard(2) if i in split else pl for
+                                      i, pl in enumerate(buf.placements)])
+    buf = ctx.constrain(buf, (None, "act_batch", None, None), split)
     wg, wu, wd = (p[f"{prefix}{n}"].to(dt)
                   for n in ("we_gate", "we_up", "we_down"))
-    be = buf.transpose(0, 1).reshape(E, G * cap, D)  # every group, by expert
+    # each buffer let go once read: a prefill's dispatch holds no two of
+    # them at once
+    be = buf.reshape(E, G * cap, D)
+    del buf
     h = F.silu(torch.bmm(be, wg)) * torch.bmm(be, wu)
-    h = ctx.constrain(h.reshape(E, G, cap, -1).transpose(0, 1),
-                      ("act_batch", None, None, "act_ff"))
-    y = torch.bmm(h.transpose(0, 1).reshape(E, G * cap, -1), wd)
-    y = ctx.constrain(y.reshape(E, G, cap, D).transpose(0, 1),
-                      ("act_batch", None, None, None))
-    out = torch.stack([
-        _combine_group(y[g].reshape(E * cap, D), keep, src, order, wtsg[g], dt)
-        for g, (_, keep, src, order) in enumerate(groups)])
+    del be
+    h = ctx.constrain(h.reshape(E, G, cap, -1),
+                      (None, "act_batch", None, "act_ff"), split)
+    y = _settle_in_place(torch.bmm(h.reshape(E, G * cap, -1), wd))
+    del h
+    y = ctx.constrain(y.reshape(E, G, cap, D),
+                      (None, "act_batch", None, None), split)
+    if isinstance(x, DTensor):
+        y = to_shard(y, mesh, roles, {"batch": 1})
+    out = [_combine_group(y[:, g].reshape(E * cap, D), keep, src, order,
+                          wtsg[g], dt)
+           for g, (keep, src, order) in enumerate(groups)]
+    out = torch.stack(out) if len(out) > 1 else out[0][None]
+    if isinstance(x, DTensor):
+        out = from_shard(out, mesh, roles, dims, (G, t_loc, D))
     out = ctx.constrain(out, ("act_batch", None, None))
     return out.reshape(B, S, D)

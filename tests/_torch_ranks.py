@@ -732,3 +732,90 @@ def decode_model_rank(rank, world, cases):
         out[name] = (logits.full_tensor().numpy(),
                      {k: v.full_tensor().numpy() for k, v in new.items()})
     return out
+
+
+def moe_mesh_rank(rank, world, cases):
+    """The reduced qwen2-moe's dropping dispatch on a (2, 2) ("data",
+    "model") mesh under the train profile, its parameters laid out as a
+    train cell lays them out and gathered over "data" as a loss-path layer
+    gathers them (``ShardingCtx.gather_fsdp``), its input a DTensor
+    sharded over its rows.  ``cases`` maps a name to (MoE spec overrides,
+    dtype, parameters, input, output cotangent, the train profile's rule
+    overrides), all numpy.  Returns per
+    case, for the DTensor run and for the same dispatch on plain tensors
+    under the same context (the group-local dispatch of one process): the
+    output, the aux term, the gradients of ``(out · cotangent).sum() +
+    aux`` with respect to the input and the three expert weights; and of
+    the DTensor run, its output without a gradient, the group count, the fallbacks (the context's and
+    ``ReplicateFallback``'s), the shapes the sort read on this rank and
+    the local products' operand shapes."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed.sharding import (
+        ShardingCtx, make_profile, named_sharding,
+    )
+    from repro_torch.launch.cells import ReplicateFallback
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as tmoe
+
+    device = "cpu"
+    mesh = make_host_mesh((2, 2), ("data", "model"), device=device)
+    wrt = ("we_gate", "we_up", "we_down")
+    out = {}
+    for name, (moe_kw, dtype, params, x, gy, rules) in cases.items():
+        profile = make_profile("train").override(**rules)
+        dt = getattr(torch, dtype)
+        cfg = get_reduced("qwen2-moe-a2.7b").with_(param_dtype=dtype,
+                                                   compute_dtype=dtype)
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, **moe_kw))
+        table = tmoe.moe_param_table(cfg, "", 0)
+
+        def run(ctx, put):
+            p = {k: put(torch.from_numpy(v).to(device, dt),
+                        table[k].axes).requires_grad_(True)
+                 for k, v in params.items()}
+            xt = put(torch.from_numpy(x).to(device, dt),
+                     ("act_batch", "act_seq", "act_embed")
+                     ).requires_grad_(True)
+            o, aux = tmoe.moe_ffn(xt, ctx.gather_fsdp(p, dt), "", cfg, ctx)
+            g = put(torch.from_numpy(gy).to(device, dt),
+                    ("act_batch", "act_seq", "act_embed"))
+            grads = torch.autograd.grad((o * g).sum() + aux,
+                                        [xt] + [p[k] for k in wrt])
+            return [t.full_tensor() if hasattr(t, "full_tensor") else t
+                    for t in [o, aux] + list(grads)]
+
+        def dist_put(t, axes):
+            return distribute_tensor(
+                t, *named_sharding(mesh, axes, t.shape, profile))
+
+        ctx = ShardingCtx(mesh, profile)
+        fallbacks = []
+        with implicit_replication(), _Ops.mode(local_only=True) as rec, \
+                ReplicateFallback(fallbacks):
+            got = run(ctx, dist_put)
+        with implicit_replication(), torch.no_grad():  # a prefill's way
+            p = {k: dist_put(torch.from_numpy(v).to(device, dt),
+                             table[k].axes) for k, v in params.items()}
+            o, _ = tmoe.moe_ffn(
+                dist_put(torch.from_numpy(x).to(device, dt),
+                         ("act_batch", "act_seq", "act_embed")),
+                ctx.gather_fsdp(p, dt), "", cfg, ShardingCtx(mesh, profile))
+            no_grad = o.full_tensor()
+        plain = run(ShardingCtx(mesh, profile), lambda t, axes: t)
+        out[name] = {
+            "mesh": [t.detach().cpu().numpy() for t in got],
+            "plain": [t.detach().cpu().numpy() for t in plain],
+            "no_grad": no_grad.cpu().numpy(),
+            "groups": tmoe._dp_groups(ctx),
+            "fallbacks": ctx.fallbacks + fallbacks,
+            "sorted": [ins[0] for op, _, ins in rec.seen
+                       if op.split(".")[0] == "aten::sort"],
+            "products": [ins[:2] for op, _, ins in rec.seen
+                         if op in ("aten::mm", "aten::bmm")]}
+    return out

@@ -294,7 +294,7 @@ def test_small_cells_hold_repros_argument_bytes(small_cells, name):
 
 # ------------------------------------ the sharded train steps on 4x4
 REPRO_TRAIN44 = """
-import json, sys
+import dataclasses, json, sys
 from repro.configs import get_reduced
 from repro.configs.base import ShapeSpec
 from repro.launch.cells import build_cell, lower_cell
@@ -303,6 +303,8 @@ from repro.launch.mesh import make_host_mesh
 c = json.loads(sys.argv[1])
 mesh = make_host_mesh(tuple(c["mesh"]))
 cfg = get_reduced(c["arch"]).with_(**c.get("config", {}))
+if c.get("moe"):
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, **c["moe"]))
 if c["vocab_size"]:
     cfg = cfg.with_(vocab_size=c["vocab_size"])
 kind = c.get("kind", "train")
@@ -318,23 +320,23 @@ print("JSON", json.dumps({
     "collective_bytes": h["collective_bytes"],
     "dot_flops": h["dot_flops"]}))
 """
-TRAIN44_ARCHS = ("llama3-8b", "zamba2-1.2b", "rwkv6-1.6b")
+TRAIN44_ARCHS = ("llama3-8b", "zamba2-1.2b", "rwkv6-1.6b",
+                 "qwen2-moe-a2.7b")
 
 
 @pytest.fixture(scope="module", params=TRAIN44_ARCHS)
 def train44(request):
     """One of ``chip_smoke.py``'s phase-16 train cells (16 x 128 tokens in
     2 microbatches on a 4x4 mesh: the reduced llama3-8b at vocab 16,384,
-    the reduced zamba2-1.2b and rwkv6-1.6b): ``repro`` compiled on 16
+    the reduced zamba2-1.2b and rwkv6-1.6b, the reduced qwen2-moe-a2.7b's
+    dropping dispatch at vocab 16,384): ``repro`` compiled on 16
     placeholder devices on ``make_host_mesh((4, 4))``, the port's
     ``CELL44_PRICING`` on a fake 16-rank group."""
     sys.path.insert(0, os.path.dirname(SRC))
     import chip_smoke
 
     arch = request.param
-    c = json.dumps({"arch": arch,
-                    "vocab_size": chip_smoke.TRAIN44_CELLS[arch]["vocab_size"],
-                    **chip_smoke.TRAIN44_SHAPE})
+    c = json.dumps(chip_smoke.cell44_jobs()[f"train44:{arch}"])
     ref = last_json(run_with_devices(
         f"import sys; sys.argv[1:] = [{c!r}]\n" + REPRO_TRAIN44,
         n_devices=16))
@@ -390,6 +392,18 @@ def test_train_cell_4x4_collectives_and_dots_near_repros(train44):
     assert c["dot_ratio"] == {"zamba2-1.2b": 1.5}.get(arch, 1.1)
 
 
+def test_train_cell_4x4_replicates_no_op_of_the_dispatch(train44):
+    """No op of a train cell is rescued by ``ReplicateFallback`` (its
+    fallbacks hold no ``op/`` entry): qwen2-moe's dropping dispatch sorts,
+    scatters and combines each "data" rank's own group on plain tensors,
+    where at the parent its sort's ``searchsorted`` and its scatter had no
+    DTensor strategy and the cell died (``IndexError`` from the handler of
+    the scatter's message-less ``AssertionError``)."""
+    _, arch, _, got = train44
+    assert not [f for f in got["fallbacks"] if f.startswith("op/")], \
+        got["fallbacks"]
+
+
 def test_train_cell_4x4_repro_temp_is_the_smokes_constant(train44):
     """The card's machine has no JAX, so phase 16 holds the port to
     constants: ``repro``'s compiled temp bytes, collective bytes and dot
@@ -436,3 +450,125 @@ def test_decode_cell_4x4_gathers_no_whole_table(decode44):
         smoke.TRAIN44_COLL_RATIO * ref["collective_bytes"]
     assert ref["collective_bytes"] == \
         smoke.DECODE44_CELLS["llama3-8b"]["repro_coll"]
+
+
+# --------------------------- the dropping dispatch's cells, traced on 2x2
+DROPPING_ARCHS = ("mixtral-8x22b", "qwen2-moe-a2.7b")
+
+DROPPING_SMALL = """
+import dataclasses, json
+%s
+mesh = make_host_mesh((2, 2)%s)
+out = {}
+for arch in %r:
+    cfg = get_reduced(arch)
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, impl="dropping"))
+    cell = build_cell(cfg, ShapeSpec("train_4k", "train", 128, 8), mesh,
+                      num_microbatches=2)
+    out[arch] = {"fallbacks": cell.fallbacks, **lower(cell)}
+print("JSON", json.dumps(out))
+"""
+REPRO_DROPPING = DROPPING_SMALL % ("""
+from repro.configs import get_reduced
+from repro.configs.base import ShapeSpec
+from repro.launch.cells import build_cell, lower_cell
+from repro.launch.hlo_analysis import analyze_compiled
+from repro.launch.mesh import make_host_mesh
+def lower(cell):
+    with mesh:
+        compiled = lower_cell(cell).compile()
+    h = analyze_compiled(compiled)
+    return {"argument_size_in_bytes":
+                compiled.memory_analysis().argument_size_in_bytes,
+            "dot_flops": h["dot_flops"],
+            "collective_bytes": h["collective_bytes"]}""", "", DROPPING_ARCHS)
+PORT_DROPPING = DROPPING_SMALL % ("""
+from repro_torch.launch.dryrun import init_fake_world
+init_fake_world(4)
+from repro_torch.configs import get_reduced
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.cells import build_cell, lower_cell
+from repro_torch.launch.mesh import make_host_mesh
+def lower(cell):
+    tr = lower_cell(cell)
+    h = tr.cost_analysis()
+    return {"argument_size_in_bytes":
+                tr.memory_analysis().argument_size_in_bytes,
+            "dot_flops": h["dot_flops"],
+            "collective_bytes": h["collective_bytes"],
+            "op_fallbacks": tr.fallbacks}""", ', device="cpu"', DROPPING_ARCHS)
+
+
+@pytest.fixture(scope="module")
+def dropping_cells():
+    ref = last_json(run_with_devices(REPRO_DROPPING, n_devices=4,
+                                     timeout=600))
+    got = last_json(run_port(PORT_DROPPING, timeout=600))
+    return ref, got
+
+
+@pytest.mark.parametrize("arch", DROPPING_ARCHS)
+def test_dropping_train_cell_lowers_on_the_small_mesh(dropping_cells, arch):
+    """The reduced MoE train cells with ``moe.impl=dropping`` (seq 128,
+    batch 8, 2 microbatches on a (2, 2) mesh: 2 groups of 2 rows a
+    microbatch) lower with ``--device cpu``, where at the parent they
+    raised: no op is rescued by replication, the arguments are
+    ``repro``'s to the byte, the dot FLOPs at most 1.1x ``repro``'s
+    compiled ones and the collective bytes at most 1.5x (this CPU's
+    DTensor swaps all-to-all for all-gather + chunk)."""
+    ref, got = dropping_cells
+    a, b = ref[arch], got[arch]
+    print(arch, "port", b["dot_flops"], b["collective_bytes"], "repro",
+          a["dot_flops"], a["collective_bytes"], "fallbacks",
+          b["fallbacks"], b["op_fallbacks"])
+    assert b["op_fallbacks"] == []
+    assert b["fallbacks"] == a["fallbacks"]
+    assert b["argument_size_in_bytes"] == a["argument_size_in_bytes"]
+    assert b["dot_flops"] <= 1.1 * a["dot_flops"]
+    assert b["collective_bytes"] <= 1.5 * a["collective_bytes"]
+
+
+EMPTY_MESSAGE = """
+import json, torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch.cells import ReplicateFallback
+from repro_torch.launch.dryrun import init_fake_world
+from repro_torch.launch.mesh import make_host_mesh
+init_fake_world(4)
+mesh = make_host_mesh((2, 2), device="cpu")
+rows = DTensor.from_local(torch.ones(2, 3), mesh, (Shard(0), Replicate()),
+                          run_check=False)
+
+# an op (add's schema: no view) whose sharding fails on a sharded input
+# with a message-less AssertionError, as DTensor's index put did on the
+# dropping dispatch's scatter
+class NoStrategy:
+    _schema = torch.ops.aten.add.Tensor._schema
+
+    def __call__(self, t):
+        if any(p.is_shard() for p in t.placements):
+            raise AssertionError()
+        return t + 1
+
+    def __str__(self):
+        return "no_strategy"
+
+fallbacks = []
+out = ReplicateFallback(fallbacks).__torch_dispatch__(
+    NoStrategy(), (DTensor,), (rows,))
+print("JSON", json.dumps({"fallbacks": fallbacks, "placements": [
+    type(p).__name__ for p in out.placements]}))
+"""
+
+
+def test_an_op_failing_without_a_message_is_named_by_its_type():
+    """An op whose sharding fails with an empty message (DTensor's
+    ``AssertionError()`` on an index put) runs replicated and is recorded
+    with its exception's type as the reason; at the parent the handler
+    raised ``IndexError`` on the empty message's first line, which named
+    no op."""
+    got = last_json(run_port(EMPTY_MESSAGE))
+    assert got["placements"] == ["Replicate", "Replicate"]
+    assert got["fallbacks"] == [
+        "op/no_strategy: no sharding for its inputs (AssertionError); "
+        "replicated"]

@@ -68,6 +68,11 @@ progs = {
         mesh, (Replicate(), Replicate())),
     "all_gather": lambda: dist.all_gather(
         [torch.empty_like(g) for _ in range(4)], g),
+    # in place, over "model" (a MoE dispatch's expert outputs, settled
+    # where no gradient is taken)
+    "all_reduce_in_place": lambda: torch.ops._c10d_functional.wait_tensor(
+        torch.ops._c10d_functional.all_reduce_(
+            g, "sum", mesh.get_group(1).group_name)),
     # no DTensor strategy: on the whole tensors, after a gather of the rows
     "no_strategy": lambda: torch.searchsorted(rows, rows),
     # 3 columns a rank cannot unflatten into 3 x 2 over "model"
@@ -81,6 +86,7 @@ for name, prog in progs.items():
         res = prog()
     out[name] = analyze(tr.records)
     out[name]["fallbacks"] = fallbacks
+    out[name]["peak_bytes"] = tr.peak_bytes
     if isinstance(res, DTensor):
         out[name]["placements"] = [type(p).__name__ for p in res.placements]
         out[name]["shape"] = list(res.shape)
@@ -127,6 +133,15 @@ def test_dist_all_gather_is_priced_on_what_it_gathers(priced):
     192 bytes."""
     a = priced["all_gather"]
     assert a["collectives"] == {"all-gather": {"count": 1.0, "bytes": 192.0}}
+
+
+def test_an_all_reduce_in_place_is_priced_and_allocates_nothing(priced):
+    """``_c10d_functional.all_reduce_`` of a (3, 4) float32 over "model":
+    one all-reduce of 48 bytes, priced 2 · 48 (ring), written into its
+    input (no new buffer in the peak)."""
+    a = priced["all_reduce_in_place"]
+    assert a["collectives"] == {"all-reduce": {"count": 1.0, "bytes": 96.0}}
+    assert a["peak_bytes"] == 0
 
 
 def test_an_op_without_a_strategy_runs_replicated_and_is_recorded(priced):
