@@ -99,7 +99,7 @@ Run from the root of a checkout:
    two layers at full width, float64 prefill(S+1) against prefill(S) +
    decode (1e-6), the dropping dispatch at capacity E/K against the dense
    one (1e-9) and the share dropped at 1.25, float32 layer by layer
-   (1e-3); then 4 requests of 32 queries served as in phase 11, each
+   (1e-3); then 2 requests of 32 queries served as in phase 11, each
    held against a plain search at its rung, and the decode step set
    beside its bounds.
 13. Recurrent RAG phase, after phase 12's model is freed: zamba2-1.2b
@@ -111,7 +111,7 @@ Run from the root of a checkout:
    (S = 576: the chunked scan's padded tail and the state it hands to the
    step; 1e-6 relative), the same in float32 reported, and layer 0's
    chunked scan on its real inputs against a loop of the single-token
-   step (1e-10); then 4 requests of 32 queries served as in phase 11,
+   step (1e-10); then 2 requests of 32 queries served as in phase 11,
    each held against a plain search at its rung, and the decode step set
    beside its byte bound, one step profiled.
 14. Training phase, after phase 13's models are freed (no kernel of the
@@ -198,8 +198,27 @@ Run from the root of a checkout:
    token generated with finite logits, one injected crash survived and
    the loss falling.  Their kernel launches are counted in each
    subprocess and added to the kernels line.
+18. OOD phase, after phase 4's index and database are freed: the paper's
+   Fig. 6 workload (benchmarks/bench_ood.py) at a real size.  100,000 rows
+   of laion3m-like (d = 512, seed 0); GateIndex.build with GateConfig()
+   and phase 4's NSG settings, trained on the training half of a 50/50
+   in/out log (train_eval_query_split(db, 10,000, 1,000, seed=1,
+   ood_fraction=0.5)): build stages, repaired nodes, the padded R and
+   memory_bytes; the loss falls and every hub has a positive.  For 5,000
+   in-distribution and 5,000 OOD queries (seed 17) against exact ground
+   truth: GATE's and the medoid's entries at beams 8-128 (max_hops =
+   max(4·beam, 64), fused, l2; recall@10, QPS, mean hops, dist_evals and
+   entry_rank_proxy), GATE at least the medoid - 0.02 at every beam; at
+   beam 64 xla, fused and fused_q8 (fused ids on 0.999 of xla's, fused_q8
+   recall@10 at least fused's - 0.005); GATE's in/out recall gap at beam
+   64, reported.  Every K1 / K2 call of a fused and a fused_q8 search of
+   the OOD queries recorded and replayed as in the hop phase, every 10th
+   held at max abs error 0.0.  Then K1 and K2 at (1024, 247) ids into
+   50,000-row databases of text2image10m-like (200), tiny5m-like (384) and
+   gist1m-like (960), l2 and cosine: max abs error 0.0, the median time
+   beside the bound and the shared-memory ring's rows.
 
-Phases 3, 5-6 and 8-17 are each driven with the kernel launch counts set
+Phases 3, 5-6 and 8-18 are each driven with the kernel launch counts set
 to 0 just before and read just after.  Each phase's kernel-launch
 requirement:
    phase 3        K4 (topk_min), K5 (l2dist), K6 (gather_dist)
@@ -213,12 +232,13 @@ requirement:
    phase 16       none (its counts are logged)
    phase 17       none (counted in each example's process, added to the
                   kernels line)
+   phase 18       K1, K2, K3 (the build and the searches)
 Every check that fails raises, so the script exits non-zero and prints no
 result.  The last line is the JSON result object; the line before it is
 the card's name and power limit, and the one before that lists every
 kernel (K1 and K2 at the hop phase's 10,000-query calls, K3 at both of
 its shapes, K4 and K5 at both of theirs, greedy_assign at its slice and
-root split).  ``--out FILE`` also writes the full record there as JSON.
+root split; K1 and K2 also at phase 18's calls and widths).  ``--out FILE`` also writes the full record there as JSON.
 Exits non-zero without a CUDA card or outside a checkout.
 """
 from __future__ import annotations
@@ -313,17 +333,21 @@ def hold(torch, np, name, got, want, ids) -> float:
     return float((got[~bad] - want[~bad]).abs().max()) if bool((~bad).any()) else 0.0
 
 
-def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64, n_sm: int = 132,
-                 baseline=None) -> dict:
-    """Each kernel of the search path against its plain version on the
-    card; times and bounds.  K3 at the search's and a serve request's
-    shapes, planned for ``n_sm`` SMs; ``baseline`` as ``twotower_record``."""
+def hop_kernel_records(torch, np, db, queries, dev, R: int, rng,
+                       reps: int = 30) -> dict:
+    """K1 and K2 against their plain versions on the card at (B, R) ids
+    into ``db`` (B = min(1024, len(queries))), one fresh id set a rep drawn
+    from ``rng`` with ~10% of the ids -1, l2 and cosine: the largest error,
+    the median time of the kernel and of its plain version, the bound of
+    the median rep (``hop_bound`` on its own ids: each distinct valid row
+    once), and on the card the shared-memory ring's rows that the kernel
+    library sizes (``ring_rows``)."""
     from repro_torch.kernels import gather_rows_dist, gather_rows_dist_q8, ref
+    from repro_torch.kernels.gather_dist import ring_rows
     from repro_torch.quant import quantize_db
 
     N, d = db.shape
-    B, R, reps = min(1024, len(queries)), 32, 30
-    rng = np.random.default_rng(11)
+    B = min(1024, len(queries))
     ids_np = rng.integers(0, N, (reps + 3, B, R)).astype(np.int32)
     ids_np[rng.random(ids_np.shape) < 0.1] = -1
     ids_all = torch.as_tensor(ids_np, device=dev)   # one fresh id set per rep
@@ -341,7 +365,6 @@ def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64, n_sm: int = 132,
     qnp[:, :d] = qn
     out = {}
 
-    n_valid = float((ids_all[:reps] >= 0).sum()) / reps
     for name, fn, plain, args_l2, args_cos, row_bytes in (
         ("gather_rows_dist", gather_rows_dist, ref.gather_rows_dist_ref,
          (dbt, q), (dbt, qn, inv), 4 * d),
@@ -350,17 +373,34 @@ def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64, n_sm: int = 132,
          (qdb.codes, qdb.scale, qdb.zero, qnp, qdb.inv_norms), dp + 8 * nb),
     ):
         rec = {}
+        ring = (ring_rows(4 * d if name == "gather_rows_dist" else dp)
+                if torch.device(dev).type == "cuda" else None)
         for metric, args in (("l2", args_l2), ("cosine", args_cos)):
             err = hold(torch, np, f"{name}/{metric}", fn(ids_all[0], *args),
                        plain(ids_all[0], *args), ids_all[0])
             ms = cuda_ms(torch, lambda i: fn(ids_all[i], *args), reps)
             plain_ms = cuda_ms(torch, lambda i: plain(ids_all[i], *args), reps)
             width = args[-2 if metric == "cosine" else -1].shape[1]
-            b = bound(n_valid * (row_bytes + (4 if metric == "cosine" else 0))
-                      + B * R * 8 + B * width * 4,
-                      n_valid * width * 3)
-            rec[metric] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+            per_rep = [hop_bound(torch, ids_all[i], row_bytes
+                                 + (4 if metric == "cosine" else 0),
+                                 4 * width, width) for i in range(reps)]
+            b = sorted(per_rep, key=lambda r: r["bound_ms"])[reps // 2]
+            rec[metric] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "ring_rows": ring, **b}
         out[name] = rec
+    return out
+
+
+def kernel_phase(torch, np, db, queries, dev, n_hubs: int = 64, n_sm: int = 132,
+                 baseline=None) -> dict:
+    """Each kernel of the search path against its plain version on the
+    card; times and bounds.  K3 at the search's and a serve request's
+    shapes, planned for ``n_sm`` SMs; ``baseline`` as ``twotower_record``."""
+    from repro_torch.kernels import ref
+
+    N, d = db.shape
+    rng = np.random.default_rng(11)
+    out = hop_kernel_records(torch, np, db, queries, dev, 32, rng)
 
     # K3 at the two shapes the main path launches it at: the search's
     # (Q, 64, 128) and a serve request's (1024, 64, 128); query latents and
@@ -692,40 +732,50 @@ def composed_check(torch, ops, ref, exact_knn, q, c, k, got=None) -> dict:
     return rec
 
 
+def timed_search(torch, idx, qd, gt, sp, entry: str, dev) -> dict:
+    """One search of ``qd`` from GATE's entries (``entry="gate"``) or the
+    medoid's: warmed up once, timed once to ``torch.cuda.synchronize()``,
+    then run once instrumented for its telemetry; recall@10 against ``gt``
+    where given."""
+    from repro_torch import recall_at_k, summarize
+
+    def run(p):
+        if entry == "gate":
+            return idx.search(qd, params=p, telemetry_sink=None, device=dev)
+        return idx.search_baseline(qd, params=p, entry="medoid",
+                                   telemetry_sink=None, device=dev)
+
+    run(sp)  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(sp)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _, tele = run(sp.replace(instrument=True))
+    s = summarize(tele)
+    ids = res.ids.cpu().numpy()
+    return {
+        "recall_at_10": recall_at_k(ids, gt, 10) if gt is not None else None,
+        "qps": len(qd) / secs, "seconds": secs,
+        "mean_hops": s["mean_hops"], "mean_dist_evals": s["mean_dist_evals"],
+        "mean_bytes_read": s["mean_bytes_read"],
+        "mean_nav_hops": s["mean_nav_hops"],
+        "mean_entry_rank_proxy": s["mean_entry_rank_proxy"], "ids": ids,
+    }
+
+
 def search_phase(torch, idx, eval_q, gt, metric, kernels, baseline, dev):
-    from repro_torch import SearchParams, recall_at_k, summarize
+    from repro_torch import SearchParams
 
     qd = torch.as_tensor(eval_q, device=dev)
     rows = {}
     runs = [(f"gate/{k}", k, "gate") for k in kernels]
     if baseline:
-        runs.append(("baseline_medoid/fused", "fused", "baseline"))
-    for label, kernel, how in runs:
+        runs.append(("baseline_medoid/fused", "fused", "medoid"))
+    for label, kernel, entry in runs:
         sp = SearchParams(k=10, beam_width=64, max_hops=256, metric=metric,
                           kernel=kernel, rerank_mult=4)
-
-        def run(p):
-            if how == "gate":
-                return idx.search(qd, params=p, telemetry_sink=None, device=dev)
-            return idx.search_baseline(qd, params=p, entry="medoid",
-                                       telemetry_sink=None, device=dev)
-
-        run(sp)  # warm up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run(sp)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        _, tele = run(sp.replace(instrument=True))
-        s = summarize(tele)
-        ids = res.ids.cpu().numpy()
-        rows[label] = {
-            "recall_at_10": recall_at_k(ids, gt, 10) if gt is not None else None,
-            "qps": len(eval_q) / secs, "seconds": secs,
-            "mean_hops": s["mean_hops"], "mean_dist_evals": s["mean_dist_evals"],
-            "mean_bytes_read": s["mean_bytes_read"],
-            "mean_nav_hops": s["mean_nav_hops"], "ids": ids,
-        }
+        rows[label] = timed_search(torch, idx, qd, gt, sp, entry, dev)
         log(f"search {metric} {label}: " + json.dumps(
             {k: v for k, v in rows[label].items() if k != "ids"}))
     return rows
@@ -896,7 +946,8 @@ def log_ptxas(tag: str, text: str) -> None:
 
 
 def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
-              n_plain=5) -> dict:
+              n_plain=5, labels=("fused_l2", "fused_q8_l2",
+                                 "fused_l2_serve"), tag="hop") -> dict:
     """The hop kernels at the calls the main path really makes.
 
     Records every call of K1 in one ``fused`` l2 search of the eval queries,
@@ -907,7 +958,9 @@ def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
     each call replayed once under CUDA events (sum and median), the plain
     version timed on ``n_plain`` calls, and every ``check_every``-th call
     held against the plain version, l2 and cosine.  ``baseline`` is a
-    library from ``load_baseline``, timed and held on the same calls."""
+    library from ``load_baseline``, timed and held on the same calls.
+    ``labels`` picks which of the three searches to record; ``tag`` starts
+    each log line."""
     from repro_torch import SearchParams
     from repro_torch.graphs import search as S
     from repro_torch.kernels import gather_rows_dist, gather_rows_dist_q8, ref
@@ -929,7 +982,7 @@ def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
          DEFAULT_LADDER[2].params(SearchParams(k=10, kernel="fused")), 1024),
     )
     out = {}
-    for label, name, sp, nq in runs:
+    for label, name, sp, nq in (r for r in runs if r[0] in labels):
         qd = torch.as_tensor(np.ascontiguousarray(eval_q[:nq]), device=dev)
         with record_calls(S, name) as calls:
             idx.search(qd, params=sp, telemetry_sink=None, device=dev)
@@ -992,7 +1045,7 @@ def hop_phase(torch, np, idx, eval_q, dev, baseline=None, check_every=10,
                                    *calls[picks[j % len(picks)]][1]),
             len(picks))
         out[label] = rec
-        log(f"hop {label} {name}: " + json.dumps(
+        log(f"{tag} {label} {name}: " + json.dumps(
             {k: v if not isinstance(v, dict) else
              {kk: vv for kk, vv in v.items() if kk != "ms"}
              for k, v in rec.items() if k != "valid_slots"}))
@@ -3828,6 +3881,179 @@ def examples_phase(dev, examples=EXAMPLES17) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# phase 18: benchmarks/bench_ood.py's workload (the paper's Fig. 6) at a
+# real size: laion3m-like at its own width, GATE trained on a 50/50 log of
+# in-distribution and OOD historical queries, searched per query type
+OOD_PROFILE = "laion3m-like"
+OOD_ROWS = 100_000      # 250,000 took the smoke past 900 s (PERF.md §4)
+OOD_TRAIN = 10_000      # the training half of train_eval_query_split
+OOD_EVAL = 5_000        # evaluation queries of each type
+OOD_BEAMS = (8, 16, 32, 64, 128)  # 64 is required: the kernels' beam
+OOD_NSG = {"R": 32, "knn_k": 32, "search_l": 64, "pool_size": 96}
+# the hop kernels at the other widths of the paper's Table 2, on
+# databases of WIDTH_ROWS rows, at (1024, WIDTH_R) ids
+WIDTH_PROFILES = ("text2image10m-like", "tiny5m-like", "gist1m-like")
+WIDTH_ROWS = 50_000
+WIDTH_R = 247
+
+
+def ood_sweep(torch, idx, q, gt, beams, dev) -> dict:
+    """``measure_entry_strategy`` (benchmarks/common.py) of GATE's and the
+    medoid's entries over ``beams`` (max_hops = max(4·beam, 64), ``fused``,
+    l2), then ``xla`` and ``fused_q8`` at beam 64 beside the sweep's
+    ``fused`` row.  Gates: GATE at least the medoid - 0.02 at every beam,
+    ``fused`` ids on at least 0.999 of ``xla``'s and ``fused_q8`` at least
+    ``fused`` - 0.005 at beam 64."""
+    from repro_torch import SearchParams
+
+    qd = torch.as_tensor(q, device=dev)
+    sweep = {"GATE": [], "medoid": []}
+    ids64 = {}
+    for bw in beams:
+        sp = SearchParams(k=10, beam_width=bw, max_hops=max(4 * bw, 64),
+                          kernel="fused", rerank_mult=4)
+        for name, entry in (("GATE", "gate"), ("medoid", "medoid")):
+            row = timed_search(torch, idx, qd, gt, sp, entry, dev)
+            ids = row.pop("ids")
+            if bw == 64 and name == "GATE":
+                ids64["fused"] = ids
+            sweep[name].append({"beam_width": bw, **row})
+        g, m = sweep["GATE"][-1], sweep["medoid"][-1]
+        require(g["recall_at_10"] >= m["recall_at_10"] - 0.02,
+                f"phase 18: GATE recall@10 {g['recall_at_10']:.4f} below the "
+                f"medoid's {m['recall_at_10']:.4f} - 0.02 at beam {bw}")
+    kernels = {"fused": next(r for r in sweep["GATE"] if r["beam_width"] == 64)}
+    sp = SearchParams(k=10, beam_width=64, max_hops=256, rerank_mult=4)
+    for kern in ("xla", "fused_q8"):
+        kernels[kern] = timed_search(torch, idx, qd, gt,
+                                     sp.replace(kernel=kern), "gate", dev)
+        ids64[kern] = kernels[kern].pop("ids")
+    agree = agreement(ids64["fused"], ids64["xla"])
+    r = {k: v["recall_at_10"] for k, v in kernels.items()}
+    require(agree >= 0.999,
+            f"phase 18: fused ids agree with xla on {agree:.5f} < 0.999")
+    require(r["fused_q8"] >= r["fused"] - 0.005,
+            "phase 18: fused_q8 recall@10 below fused - 0.005")
+    return {"sweep": sweep, "kernels_at_64": kernels, "fused_vs_xla": agree}
+
+
+def width_records(torch, np, dev, rows=WIDTH_ROWS, R=WIDTH_R,
+                  reps: int = 30) -> dict:
+    """K1 and K2 against their plain versions (max abs error 0.0) at (1024,
+    ``R``) ids into a ``rows``-row database of each profile, l2 and cosine,
+    each time beside its bound and the ring's rows (``hop_kernel_records``;
+    the queries are in-distribution, seed 17), for ``WIDTH_PROFILES``."""
+    from repro_torch.data.synthetic import make_database, make_queries_in_dist
+
+    out = {}
+    for profile in WIDTH_PROFILES:
+        db, _ = make_database(profile, rows, seed=0)
+        q = make_queries_in_dist(db, 1024, seed=17)
+        rec = hop_kernel_records(torch, np, db, q, dev, R,
+                                 np.random.default_rng(11), reps)
+        for name, by_metric in rec.items():
+            for metric, m in by_metric.items():
+                require(m["max_abs_err"] == 0.0,
+                        f"phase 18: {name} at d = {db.shape[1]} ({metric}) "
+                        f"is {m['max_abs_err']:.3g} off its plain version")
+        out[profile] = {"d": int(db.shape[1]), "rows": rows,
+                        "shape": [len(q), R], **rec}
+        log(f"phase 18: hop kernels at d = {db.shape[1]}: " + json.dumps(rec))
+    return out
+
+
+def ood_phase(torch, np, dev, n: int = OOD_ROWS, n_train: int = OOD_TRAIN,
+              n_eval: int = OOD_EVAL, gcfg=None, nsg_kw=None,
+              beams=OOD_BEAMS, width_kw=None, check_every: int = 10,
+              n_plain: int = 5) -> dict:
+    """Phase 18: GATE on bench_ood's workload.  ``n`` rows of laion3m-like
+    (d = 512, seed 0); the training half of ``train_eval_query_split(db,
+    n_train, n_train // 10, seed=1, ood_fraction=0.5)`` as the log;
+    ``n_eval`` in-distribution and ``n_eval`` OOD evaluation queries (seed
+    17, as bench_ood draws them); ``beams`` must hold 64.
+    ``GateIndex.build`` with ``gcfg`` (default ``GateConfig()``) and phase
+    4's NSG settings: the loss must fall and every hub have a positive.  Each query type against exact
+    ground truth (``ood_sweep``); GATE's in/out recall gap at beam 64,
+    reported, not gated.  The kernel launches of the build and the
+    searches are this phase's counts.  Then every K1 / K2 call of one
+    ``fused`` and one ``fused_q8`` search of the OOD queries is recorded,
+    replayed and every ``check_every``-th held against the plain version
+    (``hop_phase``; max abs error 0.0), and the hop kernels are held and
+    timed at the other widths (``width_records(**width_kw)``)."""
+    from repro_torch import GateConfig, GateIndex, exact_knn
+    from repro_torch import kernels as K
+    from repro_torch.data.synthetic import (
+        make_database, make_queries_in_dist, make_queries_ood,
+        train_eval_query_split,
+    )
+
+    t_phase = time.perf_counter()
+    db, _ = make_database(OOD_PROFILE, n, seed=0)
+    train_q, _ = train_eval_query_split(db, n_train, n_train // 10, seed=1,
+                                        ood_fraction=0.5)
+    queries = {"in_dist": make_queries_in_dist(db, n_eval, seed=17),
+               "ood": make_queries_ood(db, n_eval, seed=17)}
+    out = {"profile": OOD_PROFILE, "n": n, "d": int(db.shape[1]),
+           "train_queries": len(train_q), "eval_queries": n_eval,
+           "data_s": time.perf_counter() - t_phase}
+    log(f"phase 18: data {db.shape}, {len(train_q)} training queries "
+        f"(50/50 in/out), {n_eval} + {n_eval} evaluation queries, "
+        f"{out['data_s']:.2f} s")
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx = GateIndex.build(db, train_q, gcfg or GateConfig(), device=dev,
+                          **(nsg_kw or OOD_NSG))
+    rep = idx.build_report
+    out["build"] = {
+        "seconds": time.perf_counter() - t0,
+        "stages": {k: v for k, v in rep.items()
+                   if k.startswith(("t_", "nsg_t_"))},
+        "repaired_nodes": rep.get("nsg_repair_nodes"),
+        "repair_waves": rep.get("nsg_repair_waves"),
+        "padded_R": int(idx.neighbors.shape[1]),
+        "loss_first": rep["loss_first"], "loss_last": rep["loss_last"],
+        "samples": rep["samples"],
+    }
+    log("phase 18: build " + json.dumps(out["build"]))
+    require(rep["loss_last"] < rep["loss_first"],
+            "phase 18: the two-tower loss did not fall")
+    require(rep["samples"]["hub_with_no_pos"] == 0,
+            "phase 18: a hub has no positive query")
+    idx.ensure_quantized()
+    out["memory_bytes"] = idx.memory_bytes()
+    log("phase 18: memory_bytes " + json.dumps(out["memory_bytes"]))
+
+    out["types"] = {}
+    for qtype, q in queries.items():
+        t0 = time.perf_counter()
+        gt, _ = exact_knn(q, db, 10, device=dev)
+        rec = ood_sweep(torch, idx, q, gt, beams, dev)
+        rec["seconds"] = time.perf_counter() - t0
+        out["types"][qtype] = rec
+        log(f"phase 18: {qtype} " + json.dumps(rec))
+    out["launches"] = K.launch_counts()
+    log("launches on the OOD path: " + json.dumps(out["launches"]))
+    r64 = {t: r["kernels_at_64"]["fused"]["recall_at_10"]
+           for t, r in out["types"].items()}
+    out["gap_at_64"] = r64["in_dist"] - r64["ood"]
+    log(f"phase 18: GATE in/out recall@10 gap at beam 64: "
+        f"{out['gap_at_64']:.5f} ({r64})")
+
+    out["hop"] = hop_phase(torch, np, idx, queries["ood"], dev,
+                           check_every=check_every, n_plain=n_plain,
+                           labels=("fused_l2", "fused_q8_l2"),
+                           tag="phase 18: hop")
+    for label, h in out["hop"].items():
+        require(h["kernel"]["max_abs_err"] == 0.0,
+                f"phase 18: {label}'s recorded calls are "
+                f"{h['kernel']['max_abs_err']:.3g} off the plain version")
+    del idx, db
+    gc.collect()
+    out["widths"] = width_records(torch, np, dev, **(width_kw or {}))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
 CSRC = "src/repro_torch/csrc/"
 SOURCES = {"gather_rows_dist": CSRC + "gather_dist.cu",
            "gather_rows_dist_q8": CSRC + "gather_dist.cu",
@@ -3856,7 +4082,8 @@ def _at_shape(rec: dict) -> dict:
 def kernels_line(kres, api, hop, launches, serve_launches,
                  feedback_launches, single, greedy, ablation_launches=None,
                  rag_launches=None, moe_rag_launches=None,
-                 recurrent_rag_launches=None, example_launches=None) -> list:
+                 recurrent_rag_launches=None, example_launches=None,
+                 ood=None) -> list:
     """One entry per kernel for the line before the last: K1 and K2 at the
     10,000-query search's own calls (hop phase) with their fixed (1024, 32)
     rows beside them, and K1 at the single-query search's (1, R) calls
@@ -3867,10 +4094,14 @@ def kernels_line(kres, api, hop, launches, serve_launches,
     K1-K3 count their launches on the search, serve, feedback, ablation
     and the three RAG paths, ``greedy_assign`` on the ablation path; every
     kernel adds its launches in phase 17's examples (``example_launches``,
-    where given)."""
+    where given).  With ``ood`` (phase 18's record), K1-K3 add that
+    phase's launches, and K1 and K2 carry its recorded OOD searches'
+    calls (``ood_shape``) and the other widths' (1024, 247) rows
+    (``widths``), their errors in ``max_abs_err``."""
     extra = {"ablations": ablation_launches or {}, "rag": rag_launches or {},
              "rag_moe": moe_rag_launches or {},
-             "rag_recurrent": recurrent_rag_launches or {}}
+             "rag_recurrent": recurrent_rag_launches or {},
+             "ood": ood["launches"] if ood else {}}
     hop_of = {"gather_rows_dist": "fused_l2", "gather_rows_dist_q8": "fused_q8_l2"}
     comp = api["composed_top10"]
     line = []
@@ -3926,6 +4157,25 @@ def kernels_line(kres, api, hop, launches, serve_launches,
                 entry["single_query_shape"] = {
                     k: single[k] for k in ("shape", "ms", "plain_ms",
                                            "bound_ms", "bound_by")}
+            if ood:
+                oh = ood["hop"][hop_of[name]]
+                entry["ood_shape"] = {
+                    "d": ood["d"], "shape": [oh["B"], oh["R"]],
+                    "ms": oh["kernel"]["ms_median"],
+                    "ms_per_search": oh["kernel"]["ms_sum"],
+                    "plain_ms": oh["plain_ms_median"],
+                    "bound_ms": oh["bound_ms_median"],
+                    "bound_by": oh["bound_by"]}
+                entry["widths"] = {
+                    str(w["d"]): {m: {k: w[name][m][k] for k in
+                                      ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "ring_rows")}
+                                  for m in ("l2", "cosine")}
+                    for w in ood["widths"].values()}
+                entry["max_abs_err"] = max(
+                    [err, oh["kernel"]["max_abs_err"]]
+                    + [w[name][m]["max_abs_err"] for w in ood["widths"].values()
+                       for m in ("l2", "cosine")])
             line.append(entry)
             continue
         entry.update(_at_shape(main_rec))
@@ -4180,8 +4430,8 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         log(f"memory before phase 12: {torch.cuda.memory_allocated()} bytes")
         K.reset_launch_counts()
-        # 4 requests, not 8: the smoke's 900 s with phase 15 (PERF.md §4)
-        moe_rag = moe_rag_phase(torch, np, idx, eval_q, dev, n_req=4)
+        # 2 requests, not 8: the smoke's 900 s with phases 15-18 (PERF.md §4)
+        moe_rag = moe_rag_phase(torch, np, idx, eval_q, dev, n_req=2)
         moe_rag_launches = K.launch_counts()
         log("launches on the MoE RAG path: " + json.dumps(moe_rag_launches))
         for name in ("gather_rows_dist", "twotower_score"):
@@ -4202,7 +4452,7 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         log(f"memory before phase 13: {torch.cuda.memory_allocated()} bytes")
         K.reset_launch_counts()
-        rec_rag = recurrent_rag_phase(torch, np, idx, eval_q, dev, n_req=4)
+        rec_rag = recurrent_rag_phase(torch, np, idx, eval_q, dev, n_req=2)
         rec_rag_launches = K.launch_counts()
         log("launches on the recurrent RAG path: "
             + json.dumps(rec_rag_launches))
@@ -4270,15 +4520,29 @@ def main(argv=None) -> int:
     log("launches in the examples: " + json.dumps(ex["launches"]))
     log(f"phase 17: {ex['seconds']:.1f} s")
 
+    # 18. bench_ood's workload at a real size and the hop kernels at every
+    # Table-2 width, after phase 4's index and database are freed; its own
+    # counts (the build and the searches)
+    memory_bytes = idx.memory_bytes()
+    del idx, db, train_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"memory before phase 18: {torch.cuda.memory_allocated()} bytes")
+    ood = ood_phase(torch, np, dev)
+    for name in ("gather_rows_dist", "gather_rows_dist_q8", "twotower_score"):
+        require(ood["launches"][name] > 0,
+                f"kernel {name} was not launched on the OOD path")
+    log(f"phase 18: {ood['seconds']:.1f} s")
+
     line = kernels_line(kres, api, hop, launches, serve_launches,
                         fb_launches, single, greedy, abl_launches,
                         rag_launches, moe_rag_launches, rec_rag_launches,
-                        ex["launches"])
+                        ex["launches"], ood)
     record = {
         "card": smi, "n": args.n, "queries": args.queries,
         "timing_floor_ms": floor_ms,
         "kernel_build_s": secs, "kernels": kres, "build_s": t_build,
-        "build_report": rep, "memory_bytes": idx.memory_bytes(),
+        "build_report": rep, "memory_bytes": memory_bytes,
         "search_l2": {k: {kk: vv for kk, vv in v.items() if kk != "ids"}
                       for k, v in l2.items()},
         "search_cosine": {k: {kk: vv for kk, vv in v.items() if kk != "ids"}
@@ -4296,7 +4560,7 @@ def main(argv=None) -> int:
         "train": train, "train_launches": train_launches,
         "partitioned": part, "partitioned_launches": part_launches,
         "dryrun": dry, "dryrun_launches": dry_launches,
-        "examples": ex,
+        "examples": ex, "ood": ood,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out is not None:

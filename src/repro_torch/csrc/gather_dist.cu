@@ -32,7 +32,7 @@
 //     the first stage.  Stage k+2 is issued once every warp has consumed
 //     stage k (phase parity per barrier).  S is sized from the row width so
 //     q plus the ring stays near 16 KB and 8 blocks of 256 threads fit on an
-//     SM (S = 32 at d = 128);
+//     SM (S = 32 at d = 128; K2's kernel is bounded to 5, see there);
 //   * the per-row scalars too small for the bulk copy's 16-byte granule
 //     (the cosine inv norm, K2's first-block scale and zero) are loaded for
 //     all of a chunk's valid rows at once, one thread each, while the first
@@ -46,7 +46,17 @@
 // The formula is repro's, element by element: sum((v - q)^2) for L2 (not the
 // dot form), and 1 - sum((v * inv[v]) * q_hat) for cosine, every product and
 // sum rounded on its own (no FMA contraction) as the plain PyTorch version
-// rounds them, so the two differ only in the order of the d-term sum.
+// rounds them.  The d-term sum takes the order of PyTorch's CUDA reduction
+// of a contiguous row of at least 128 floats (the plain version's torch.sum):
+// lane i keeps four running sums, one per component of float4 (char4 for
+// K2) i, i+32, ..., combines them as ((x + y) + z) + w, and the lanes meet
+// in the xor tree (offsets 16 down to 1, as its shfl_down tree does at lane
+// 0).  So the bulk paths and K2's register path give the plain version's
+// bits at every width d % 4 == 0, d >= 128 (the paper's 128, 200, 384, 512,
+// 960); at d = 128 a lane has one float4 and this is the first design's
+// single chain.  K1's register path (a row not a multiple of 16 bytes or a
+// base not 16-byte aligned) sums element i at stride 32 and differs from
+// the plain version only in the order of the sum.
 //
 // K6 takes rows the caller has already gathered, (B, R, d) contiguous, and
 // computes the TPU kernel's dot form max(|v|^2 - 2 v.q + |q|^2, 0); an
@@ -94,6 +104,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// A lane's four running sums, one per float4 component, in the order
+// PyTorch's vectorized CUDA reduction combines its four accumulators.
+__device__ __forceinline__ float lane_sum(float4 a) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(a.x, a.y), a.z), a.w);
 }
 
 // One term of the sum, rounded as the plain version rounds it.
@@ -252,16 +268,16 @@ rows_f32_bulk(const int* __restrict__ ids, const float* __restrict__ db,
       for (int j = warp; j < m; j += kWarps) {
         const float iv = kCos ? h.inv[j0 + j] : 0.f;
         const float4* v4 = reinterpret_cast<const float4*>(buf) + (size_t)j * (d >> 2);
-        float acc = 0.f;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int i = lane; i < (d >> 2); i += 32) {
           const float4 v = v4[i];
           const float4 w = q4[i];
-          acc = __fadd_rn(acc, term<kCos>(v.x, w.x, iv));
-          acc = __fadd_rn(acc, term<kCos>(v.y, w.y, iv));
-          acc = __fadd_rn(acc, term<kCos>(v.z, w.z, iv));
-          acc = __fadd_rn(acc, term<kCos>(v.w, w.w, iv));
+          a.x = __fadd_rn(a.x, term<kCos>(v.x, w.x, iv));
+          a.y = __fadd_rn(a.y, term<kCos>(v.y, w.y, iv));
+          a.z = __fadd_rn(a.z, term<kCos>(v.z, w.z, iv));
+          a.w = __fadd_rn(a.w, term<kCos>(v.w, w.w, iv));
         }
-        acc = warp_sum(acc);
+        const float acc = warp_sum(lane_sum(a));
         if (lane == 0) out[pairs[j0 + j].x] = kCos ? __fsub_rn(1.f, acc) : acc;
       }
     });
@@ -321,9 +337,12 @@ rows_f32_regs(const int* __restrict__ ids, const float* __restrict__ db,
 
 // ---------------------------------------------------------------- K2
 // 32 lanes x 4 codes = one 128-code block per step; blk % 4 == 0, so a
-// lane's 4 codes share one (scale, zero) pair.
+// lane's 4 codes share one (scale, zero) pair.  Bounded to 5 blocks an SM
+// (48 registers, no spill): with the four running sums, 8 blocks (32
+// registers) spilled 172 bytes a thread (ptxas -v) and ran slower than
+// the single-chain design on the search's calls.
 template <bool kCos>
-__global__ void __launch_bounds__(kThreads, 8)
+__global__ void __launch_bounds__(kThreads, 5)
 rows_q8_bulk(const int* __restrict__ ids, const int8_t* __restrict__ codes,
              const float* __restrict__ scale, const float* __restrict__ zero,
              const float* __restrict__ q, const float* __restrict__ inv,
@@ -363,19 +382,19 @@ rows_q8_bulk(const int* __restrict__ ids, const int8_t* __restrict__ codes,
         const float iv = kCos ? h.inv[j0 + j] : 0.f;
         const long long id = pairs[j0 + j].y;
         const char4* c4 = reinterpret_cast<const char4*>(buf) + (size_t)j * (dp >> 2);
-        float acc = 0.f;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int i = lane; i < (dp >> 2); i += 32) {
           const int blkid = (i << 2) / blk;
           const float s = blkid == 0 ? sr : __ldg(scale + id * nb + blkid);
           const float z = blkid == 0 ? zr : __ldg(zero + id * nb + blkid);
           const char4 cc = c4[i];
           const float4 w = q4[i];
-          acc = __fadd_rn(acc, term<kCos>(dq(cc.x, s, z), w.x, iv));
-          acc = __fadd_rn(acc, term<kCos>(dq(cc.y, s, z), w.y, iv));
-          acc = __fadd_rn(acc, term<kCos>(dq(cc.z, s, z), w.z, iv));
-          acc = __fadd_rn(acc, term<kCos>(dq(cc.w, s, z), w.w, iv));
+          a.x = __fadd_rn(a.x, term<kCos>(dq(cc.x, s, z), w.x, iv));
+          a.y = __fadd_rn(a.y, term<kCos>(dq(cc.y, s, z), w.y, iv));
+          a.z = __fadd_rn(a.z, term<kCos>(dq(cc.z, s, z), w.z, iv));
+          a.w = __fadd_rn(a.w, term<kCos>(dq(cc.w, s, z), w.w, iv));
         }
-        acc = warp_sum(acc);
+        const float acc = warp_sum(lane_sum(a));
         if (lane == 0) out[pairs[j0 + j].x] = kCos ? __fsub_rn(1.f, acc) : acc;
       }
     });
@@ -409,13 +428,14 @@ rows_q8_regs(const int* __restrict__ ids, const int8_t* __restrict__ codes,
     for (int j0 = warp * kRegRows; j0 < n; j0 += kWarps * kRegRows) {
       long long id[kRegRows];
       bool on[kRegRows];
-      float iv[kRegRows], acc[kRegRows];
+      float iv[kRegRows];
+      float4 acc[kRegRows];
 #pragma unroll
       for (int u = 0; u < kRegRows; ++u) {
         on[u] = j0 + u < n;
         id[u] = on[u] ? h.pairs[j0 + u].y : 0;
         iv[u] = kCos && on[u] ? __ldg(inv + id[u]) : 0.f;
-        acc[u] = 0.f;
+        acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
       for (int i = lane; i < (dp >> 2); i += 32) {
         const int blkid = (i << 2) / blk;
@@ -431,15 +451,15 @@ rows_q8_regs(const int* __restrict__ ids, const int8_t* __restrict__ codes,
         const float4 w = q4[i];
 #pragma unroll
         for (int u = 0; u < kRegRows; ++u) {
-          acc[u] = __fadd_rn(acc[u], term<kCos>(dq(c[u].x, s[u], z[u]), w.x, iv[u]));
-          acc[u] = __fadd_rn(acc[u], term<kCos>(dq(c[u].y, s[u], z[u]), w.y, iv[u]));
-          acc[u] = __fadd_rn(acc[u], term<kCos>(dq(c[u].z, s[u], z[u]), w.z, iv[u]));
-          acc[u] = __fadd_rn(acc[u], term<kCos>(dq(c[u].w, s[u], z[u]), w.w, iv[u]));
+          acc[u].x = __fadd_rn(acc[u].x, term<kCos>(dq(c[u].x, s[u], z[u]), w.x, iv[u]));
+          acc[u].y = __fadd_rn(acc[u].y, term<kCos>(dq(c[u].y, s[u], z[u]), w.y, iv[u]));
+          acc[u].z = __fadd_rn(acc[u].z, term<kCos>(dq(c[u].z, s[u], z[u]), w.z, iv[u]));
+          acc[u].w = __fadd_rn(acc[u].w, term<kCos>(dq(c[u].w, s[u], z[u]), w.w, iv[u]));
         }
       }
 #pragma unroll
       for (int u = 0; u < kRegRows; ++u) {
-        const float a = warp_sum(acc[u]);
+        const float a = warp_sum(lane_sum(acc[u]));
         if (lane == 0 && on[u])
           out[h.pairs[j0 + u].x] = kCos ? __fsub_rn(1.f, a) : a;
       }
@@ -565,6 +585,12 @@ int ring_rows(size_t row_bytes) {
 
 extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
+}
+
+// The bulk path's ring rows for rows of `row_bytes` (4 d for K1, the padded
+// code width for K2), as the launches below size it.
+extern "C" int gather_dist_ring_rows(long long row_bytes) {
+  return ring_rows((size_t)row_bytes);
 }
 
 // ids (B, R) i32; db (N, d) f32; q (B, d) f32 (pre-normalized under

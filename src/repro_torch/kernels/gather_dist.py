@@ -36,6 +36,15 @@ _LAUNCH = {
 _MAX_WIDTH = (232448 - 5168) // 4
 
 
+def ring_rows(row_bytes: int) -> int:
+    """The bulk path's ring row slots for rows of ``row_bytes`` (4·d for K1,
+    the padded code width for K2), read from the built kernel library
+    (``gather_dist_ring_rows``): ~16 KB of rows, even, between 2 and 32."""
+    f = _lib().gather_dist_ring_rows
+    f.argtypes, f.restype = [_L], _I
+    return f(row_bytes)
+
+
 def _lib():
     return _build.load("gather_dist", _LAUNCH)
 

@@ -7,7 +7,9 @@ nvcc for sm_90a and have no CPU mode).  Imports neither ``jax`` nor
     python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: invalid slots exactly 3.4e38, ids >= N NaN; valid values within
-rtol=1e-5, atol=1e-5 (the kernels split each sum over 32 lanes).  K3
+rtol=1e-5, atol=1e-5 (the kernels split each sum over 32 lanes), and the
+same bits at the paper's widths (K1's bulk path, K2's both paths), which
+sum in the order of the plain version's CUDA reduction.  K3
 ``twotower_score``: rtol=atol=1e-5; its two paths (and K5's) give the same
 bits, and each launch plan equals the wrapper module's ``plan``.  K4
 ``topk_min``: indices and values equal.  K5 ``l2dist`` and K6 ``gather_dist``
@@ -158,6 +160,55 @@ def test_gather_rows_dist_q8_kernel_matches_plain(cuda, B, R, d, block, case):
         want = ref.gather_rows_dist_q8_ref(safe, codes, scale, zero, qq, iv)
         _assert_masked(got.cpu(), want.cpu(), ids, 1e-5, 1e-5, n)
     assert launch_counts()["gather_rows_dist_q8"] == before + 2
+
+
+# the paper's Table-2 widths (Dp = 128, 256, 384, 512, 1024 codes): the bulk
+# paths and K2's register path sum in the order of PyTorch's vectorized CUDA
+# reduction, so they give the plain version's bits; values of ~1e3 (a
+# spread of 8) make the last bit of each sum depend on that order
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 200, 384, 512, 960])
+def test_hop_kernels_bit_equal_at_table2_widths(cuda, d):
+    n, B, R = 2000, 512, 247
+    rng = np.random.default_rng(d)
+    db = (8.0 * rng.standard_normal((n, d))).astype(np.float32)
+    q = (8.0 * rng.standard_normal((B, d))).astype(np.float32)
+    ids = rng.integers(0, n, (B, R)).astype(np.int32)
+    ids[rng.random((B, R)) < 0.1] = -1
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    inv = (1.0 / np.linalg.norm(db, axis=1)).astype(np.float32)
+    qdb = quantize_db(db)
+    dp = qdb.codes.shape[1]
+    pad = lambda x: np.pad(x, ((0, 0), (0, dp - d)))  # noqa: E731
+    idt, dbt, qt, qnt, invt, codes, scale, zero, qp, qnp, qinv = _on(
+        cuda, ids, db, q, qn.astype(np.float32), inv, qdb.codes, qdb.scale,
+        qdb.zero, pad(q), pad(qn).astype(np.float32), qdb.inv_norms)
+    for qq, iv in ((qt, None), (qnt, invt)):
+        got = gather_rows_dist(idt, dbt, qq, iv)
+        want = ref.gather_rows_dist_ref(idt, dbt, qq, iv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), float((got - want).abs().max())
+    for qq, iv in ((qp, None), (qnp, qinv)):
+        for c in (codes, _misaligned(codes, 4)):  # bulk, then register path
+            got = gather_rows_dist_q8(idt, c, scale, zero, qq, iv)
+            want = ref.gather_rows_dist_q8_ref(idt, codes, scale, zero, qq, iv)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# the ring rows that csrc/gather_dist.cu sizes at the Table-2 widths: K1's
+# rows are 4·d bytes, K2's the code width padded to 128-code blocks
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k1,k2", [(128, 32, 32), (200, 20, 32),
+                                     (384, 10, 32), (512, 8, 32),
+                                     (960, 4, 16)])
+def test_ring_rows_at_table2_widths(cuda, d, k1, k2):
+    from repro_torch.kernels.gather_dist import ring_rows
+    from repro_torch.quant import BLOCK
+
+    assert ring_rows(4 * d) == k1
+    assert ring_rows(-(-d // BLOCK) * BLOCK) == k2
+    assert ring_rows(1 << 20) == 2 and ring_rows(4) == 32
 
 
 # (10,000, 64, 128) and (1024, 64, 128) are the search's and a serve
